@@ -9,22 +9,28 @@ Phases, one JSON line each:
    versions;
 2. ``build``: nvcc builds every kernel from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel);
-3. ``kernel``: every kernel of the main path, at the main path's shapes,
-   held against its plain PyTorch version on the same CUDA tensors
-   (paged attention: exact 2e-5, LUT 2e-3 in f32; GEMM: 1e-3 f32, 2e-2
-   bf16; bf16 outputs also allow one bf16 rounding step of relative error,
-   since both sides round their f32 result to bf16), and timed with CUDA
-   events beside its roofline bound, its plain version and one PyTorch
-   library call computing the same function (timed only);
+3. ``kernel``: every kernel of the main path held against its plain
+   PyTorch version on the same CUDA tensors (paged attention: exact 2e-5,
+   LUT 2e-3 in f32; GEMM: 1e-3 f32, 2e-2 bf16; bf16 outputs also allow one
+   bf16 rounding step of relative error, since both sides round their f32
+   result to bf16; KV dequant: exactly equal), and timed with CUDA events
+   beside its roofline bound, its plain version and one PyTorch library
+   call computing the same function (timed only; none for the KV dequant).
+   Paged attention runs here at the decode shapes; the GEMM and the KV
+   dequant run after phase 5, at the shapes its runs launched them with;
 4. ``reference``: a small quantized model run on the GPU and on the CPU
-   (plain versions) from the same weights and tokens; prefill and
-   teacher-forced decode logits must agree;
+   (plain versions) from the same weights and tokens; prefill,
+   teacher-forced decode and partial-prefill (cached prefix) logits must
+   agree;
 5. ``serve``: ``repro_torch.launch.serve`` at the full width of
    qwen2.5-1.5b (28 layers, random seeded weights, W4A16) serving Best-of-8
    over 4 tasks on the paged pool, once per path: Q8, Q4 and bf16 KV, each
-   in exact and LUT softmax.  Every request must complete, the pool must
-   drain, and each run must launch its kernels exactly as often as its
-   steps require (counters reset just before each run, read just after);
+   in exact and LUT softmax; then with the prefix cache over a shared
+   3-shot header: Best-of-8 over 4 tasks on Q8 KV, and 8 plain requests
+   (one batched admission) on Q4 KV.  Every request must complete, the pool
+   must drain to the cache's pinned blocks, and each run must launch its
+   kernels exactly as often as its steps and prefills require (counters
+   reset just before each run, read just after);
 6. ``profile``: where a decode step's time goes, under ``torch.profiler``.
 
 Then a ``{"kernels": [...]}`` line (each row's ``launches`` from the serve
@@ -50,10 +56,12 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 
 PAGED_SRC = "src/repro_torch/kernels/csrc/paged_attention.cu"
 GEMM_SRC = "src/repro_torch/kernels/csrc/lut_dequant_gemm.cu"
+DEQUANT_SRC = "src/repro_torch/kernels/csrc/lut_dequant_kv.cu"
 REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention.py:160",
     "quant_paged_attention": "src/repro/kernels/paged_attention.py:269",
     "lut_dequant_gemm": "src/repro/kernels/lut_dequant_gemm.py:71",
+    "lut_dequant_kv": "src/repro/kernels/lut_dequant_gemm.py:148",
 }
 GEMM_KN = ((1536, 1536), (1536, 256), (1536, 8960))  # qwen2.5-1.5b Q4 (K, N)
 SERVE_ARGS = ["--arch", "qwen2.5-1.5b", "--quantize", "--method",
@@ -282,13 +290,15 @@ def gemm_case(M: int, K: int, N: int, dtype, seed: int):
     return x, qw
 
 
-def check_gemm_kernel(results: list, prefill_m: int) -> None:
+def check_gemm_kernel(results: list, gemm_m: dict) -> None:
+    """K3 at every M the serve runs launched it with (``gemm_m``: M -> the
+    serve path whose launches its rows carry) and a ragged M."""
     import torch
 
     from repro_torch.kernels import lut_dequant_gemm as G
     from repro_torch.quant import tile_quant as TQ
 
-    shapes = [(m, k, n) for m in (8, prefill_m) for (k, n) in GEMM_KN]
+    shapes = [(m, k, n) for m in gemm_m for (k, n) in GEMM_KN]
     # a ragged M over many 16-row tiles, checked only
     for (M, K, N) in shapes + [(300, 1536, 1536)]:
         errs = {}
@@ -318,9 +328,69 @@ def check_gemm_kernel(results: list, prefill_m: int) -> None:
                "max_abs_err": max(errs.values()), "ms": ms, "call_ms": wall,
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": lib_ms, "counter": (M, K, N),
-               "path": "q8/exact"}
+               "path": gemm_m[M]}
         emit("kernel", **row, dtype="bfloat16")
         results.append(row)
+
+
+# qwen2.5-1.5b partial prefill over a 4-block (64-token) cached header:
+# R = 28 layers x 64 tokens x rows, one Best-of-N group (1 row) or one
+# batched admission of 7 requests; a single slab and a ragged R
+DEQUANT_R = (28 * 64, 28 * 7 * 64, 1, 37)
+
+
+def check_dequant_kv_kernel(results: list, kv_r: dict) -> None:
+    """K4 against its plain version, exactly, for q8 and q4 at DEQUANT_R
+    and at every (mode, R) the serve runs launched it with (``kv_r``:
+    (mode, R) -> that path); timed at R >= 1000, and a row of the kernels
+    line where a path launched it."""
+    import torch
+
+    from repro_torch.kernels import lut_dequant_kv as LK
+    from repro_torch.kernels import ops
+    from repro_torch.serving.kv_quant import kv_tile_geometry, quantize_kv
+
+    Hkv, D = 2, 128
+    gr, gc = kv_tile_geometry(Hkv, D)
+    cb = ops.q4_codebook("cuda")
+    for mode in ("q8", "q4"):
+        for R in sorted(set(DEQUANT_R) | {r for m, r in kv_r if m == mode}):
+            gen = torch.Generator(device="cuda").manual_seed(R)
+            x = torch.randn((R, Hkv, D), generator=gen, device="cuda") * 3.0
+            q = quantize_kv(x, mode=mode, gr=gr, gc=gc)
+            args = (q["codes"], q["scales"], cb)
+            kw = dict(mode=mode, gr=gr, gc=gc)
+            out = LK.lut_dequant_kv(*args, **kw)
+            want = LK.plain_lut_dequant_kv(*args, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise AssertionError(
+                    f"lut_dequant_kv/{mode}/R{R}: not bit-identical to the "
+                    f"plain version (max abs err "
+                    f"{float((out - want).abs().max()):.3e})")
+            if R < 1000:
+                emit("kernel_check", name="lut_dequant_kv", mode=mode, R=R,
+                     max_abs_err=0.0)
+                continue
+            run = lambda: LK.lut_dequant_kv(*args, **kw)
+            nbytes = (q["codes"].numel() + q["scales"].numel() * 2 + 64
+                      + R * Hkv * D * 4)
+            b_ms, b_by = bound(nbytes, float(R * Hkv * D), "float32")
+            row = {"name": f"lut_dequant_kv/{mode}/R{R}", "route": "cuda",
+                   "source": DEQUANT_SRC,
+                   "replaces": REPLACES["lut_dequant_kv"], "max_abs_err": 0.0,
+                   "ms": time_ms(run), "call_ms": call_ms(run),
+                   "plain_ms": time_ms(lambda: LK.plain_lut_dequant_kv(
+                       *args, **kw), iters=10),
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                   "counter": ("kv", mode, R),
+                   "path": kv_r.get((mode, R))}
+            extra = dict(shape=f"R{R} Hkv2 D128", dtype="float32")
+            if row["path"] is None:  # checked and timed, not on a path
+                emit("kernel_check", **row, **extra)
+                continue
+            emit("kernel", **row, **extra)
+            results.append(row)
 
 
 # ---------------------------------------------------------------------------
@@ -396,6 +466,45 @@ def reference_check() -> None:
             emit("reference", kv_quant=kv_quant, impl=impl,
                  shape=list(got.shape), max_abs_err=err, atol=tol)
 
+    # partial prefill over cached prefixes: one block-aligned (16) and one
+    # mid-block (11) cached length in one ragged batch; the GPU gathers
+    # the prefix through K4 (two launches: K and V)
+    from repro_torch.kernels import lut_dequant_kv as LK
+    from repro_torch.serving.engine import DecodeEngine
+
+    prompts = torch.from_numpy(rng.integers(3, 300, (2, 20)).astype(
+        np.int32))
+    clens = [16, 11]
+
+    def partial(params, kv_quant):
+        eng = DecodeEngine(params, cfg, max_len=64, block_size=bs,
+                           n_blocks=1 + 4 * W, kv_quant=kv_quant)
+        full = eng.prefill(prompts)
+        ctab = np.zeros((2, eng.table_width), np.int32)
+        suffix = torch.zeros((2, 20 - min(clens)), dtype=torch.int32)
+        for i, c in enumerate(clens):
+            n = -(-c // bs)
+            ctab[i, :n] = full.table[i, :n]
+            eng.pool.retain(full.table[i, :n])
+            suffix[i, :20 - c] = prompts[i, c:]
+        lens = torch.tensor([20 - c for c in clens], dtype=torch.int32)
+        st = eng.prefill(suffix, lens, cached_table=ctab,
+                         cached_lens=np.array(clens))
+        return torch.stack([full.pending_logits, st.pending_logits]).cpu()
+
+    for kv_quant in ("q8", "q4"):
+        tol = tols[kv_quant, "exact"]
+        before = LK.lut_dequant_kv.launches
+        got = partial(params_gpu, kv_quant)
+        if LK.lut_dequant_kv.launches - before != 2:
+            raise AssertionError("partial prefill did not gather its prefix "
+                                 "through lut_dequant_kv twice")
+        want = partial(params_cpu, kv_quant)
+        err = check_close(f"reference/partial/{kv_quant}", got, want, tol)
+        emit("reference", kv_quant=kv_quant, impl="exact",
+             path="partial_prefill", cached_lens=clens,
+             shape=list(got.shape), max_abs_err=err, atol=tol)
+
 
 # ---------------------------------------------------------------------------
 # the main path: full-width serving
@@ -403,63 +512,107 @@ def reference_check() -> None:
 
 
 # every (KV pool, softmax) path of the serve slice, the north-star path
-# (Q8 KV, exact softmax) first; "none" is the bf16 pool of K1
-SERVE_PATHS = [(kv, impl) for kv in ("q8", "q4", "none")
-               for impl in ("exact", "lut")]
+# (Q8 KV, exact softmax) first; "none" is the bf16 pool of K1.  Then the
+# prefix-cache paths (exact softmax) over a shared 3-shot header: the
+# north-star path with the cache (Best-of-8 groups, one partial prefill
+# per hit), and plain requests on Q4 KV (the batched ragged admission)
+SERVE_PATHS = {f"{kv}/{impl}": (kv, impl, ["--kv-quant", kv])
+               for kv in ("q8", "q4", "none") for impl in ("exact", "lut")}
+SERVE_PATHS["q8/prefix"] = ("q8", "exact", [
+    "--kv-quant", "q8", "--prefix-cache", "--fewshot", "3"])
+SERVE_PATHS["q4/prefix"] = ("q4", "exact", [
+    "--kv-quant", "q4", "--prefix-cache", "--fewshot", "3", "--budget", "1",
+    "--tasks", "8"])
 
 
-def serve_runs(prefill_m: int, n_layers: int = 28) -> dict:
+def serve_runs(n_layers: int = 28) -> dict:
     """Drive the serve entry point once per path.  Launch counts are reset
-    just before and read just after each run, and kept per run: returns
-    {"q8/exact": {"counts": {wrapper: n}, "shapes": {(M, K, N): n}}, ...}.
-    """
+    just before and read just after each run, and kept per run, with the
+    engine's prefill calls recorded on their own: returns {path:
+    {"counts": {wrapper: n}, "shapes": {(M, K, N): n}, "kv_shapes":
+    {(mode, R): n}}}."""
     import torch
 
+    from repro_torch.kernels import lut_dequant_kv as LK
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import layers as L
+    from repro_torch.serving.engine import DecodeEngine
 
     runs = {}
-    for kv_quant, impl in SERVE_PATHS:
-        path = f"{kv_quant}/{impl}"
+    orig_prefill = DecodeEngine.prefill
+    for path, (kv_quant, impl, args) in SERVE_PATHS.items():
+        prefills = []  # (batch, padded width, partial?) per engine prefill
+
+        def recording(self, tokens, lengths=None, **kw):
+            prefills.append((*tokens.shape, kw.get("cached_table")
+                             is not None))
+            return orig_prefill(self, tokens, lengths, **kw)
+
         prev = L.set_paged_attention_impl(impl)
+        DecodeEngine.prefill = recording
         try:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             ops.reset_launch_counts()
             t0 = time.perf_counter()
-            rows = serve.main(SERVE_ARGS + ["--kv-quant", kv_quant])
+            rows = serve.main(SERVE_ARGS + args)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = ops.launch_counts()
             shapes = ops.gemm_launches_by_shape()
+            kv_shapes = dict(LK.lut_dequant_kv.shapes)
         finally:
+            DecodeEngine.prefill = orig_prefill
             L.set_paged_attention_impl(prev)
         s = rows[0]["serving"]
         attn = "paged_attention" if kv_quant == "none" else \
             "quant_paged_attention"
-        if s["completed_requests"] != 4 or s["completed_samples"] != 32:
+        n_req = 8 if "--tasks" in args else 4
+        n_samp = 1 if "--budget" in args else 8
+        if s["completed_requests"] != n_req or \
+                s["completed_samples"] != n_req * n_samp:
             raise AssertionError(f"serve {path}: not every request "
                                  f"completed: {s}")
-        if s["kv"]["blocks_in_use"] != 0:
-            raise AssertionError(f"serve {path}: pool did not drain")
+        pinned = s.get("prefix_cache", {}).get("cached_blocks", 0)
+        if s["kv"]["blocks_in_use"] != pinned:
+            raise AssertionError(f"serve {path}: pool holds "
+                                 f"{s['kv']['blocks_in_use']} blocks after "
+                                 f"drain, expected the {pinned} cache-pinned")
+        partial = sum(1 for *_, p in prefills if p)
+        if "--prefix-cache" in args and (s["prefix_cache_hits"] < 1
+                                         or partial < 1):
+            raise AssertionError(f"serve {path}: no prefix-cache hit")
         # one attention launch per layer per decode step; two Q4
         # projections per layer at each (K, N) per decode step (M = the 8
-        # slots) and per prefill (M = the padded prompt)
-        want = {attn: n_layers * s["steps"]}
+        # slots) and per prefill (M = batch x padded prompt); two KV
+        # dequant launches (K and V) per partial prefill
+        want = {attn: n_layers * s["steps"],
+                "lut_dequant_kv": 2 * partial}
         for k, n in GEMM_KN:
             want[(8, k, n)] = 2 * n_layers * s["steps"]
-            want[(prefill_m, k, n)] = 2 * n_layers * s["prefill_calls"]
+            for b, width, _ in prefills:
+                want[(b * width, k, n)] = want.get((b * width, k, n), 0) \
+                    + 2 * n_layers
         got = {**counts, **shapes}
-        if any(got.get(key, 0) != n for key, n in want.items()) or \
+        if len(prefills) != s["prefill_calls"] or \
+                any(got.get(key, 0) != n for key, n in want.items()) or \
                 counts["lut_dequant_gemm"] != sum(shapes.values()):
             raise AssertionError(f"serve {path}: launches {got}, expected "
                                  f"{want}")
-        runs[path] = {"counts": counts, "shapes": shapes}
-        emit("serve", kv_quant=kv_quant, impl=impl,
+        runs[path] = {"counts": counts, "shapes": shapes,
+                      "kv_shapes": kv_shapes}
+        emit("serve", path=path, kv_quant=kv_quant, impl=impl,
              accuracy=rows[0]["accuracy"],
              decode_tokens=s["decode_tokens"], steps=s["steps"],
              prefill_calls=s["prefill_calls"],
+             partial_prefills=partial,
+             prefill_tokens=s["prefill_tokens"],
+             prefill_tokens_saved=s["prefill_tokens_saved"],
+             prefill_calls_per_request=s["prefill_calls_per_request"],
+             admission_batch_max=s["admission_batch_max"],
+             prefix_cache_hits=s["prefix_cache_hits"],
+             cache_pinned_blocks=pinned,
              decode_tok_per_s=s["decode_tok_per_s"],
              step_time_p50_ms=s["step_time_p50"] * 1e3,
              step_time_p99_ms=s["step_time_p99"] * 1e3,
@@ -468,6 +621,8 @@ def serve_runs(prefill_m: int, n_layers: int = 28) -> dict:
              launches=counts,
              gemm_launches={"x".join(map(str, k)): v
                             for k, v in sorted(shapes.items())},
+             dequant_kv_launches={f"{m}/R{r}": v
+                                  for (m, r), v in sorted(kv_shapes.items())},
              attn_launches_per_decode_step=counts[attn] / max(1, s["steps"]),
              preemptions=s["preemptions"])
     return runs
@@ -522,8 +677,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from repro_torch.data import tasks as T
-    from repro_torch.data.tokenizer import ByteTokenizer
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -537,24 +690,35 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          sources=list(build.SOURCES))
 
-    tok = ByteTokenizer()
-    prefill_m = max(len(tok.encode(t.prompt))
-                    for t in T.gen_dataset(123, 4))
     results: list = []
     check_paged_kernels(results)
-    check_gemm_kernel(results, prefill_m)
     reference_check()
-    runs = serve_runs(prefill_m)
+    runs = serve_runs()
+    # K3 and K4 at the shapes the serve runs launched them with: K3's M on
+    # the north-star path (8 decode slots, a Best-of-N group's padded
+    # prompt) and on the prefix paths (each prefill's batch x its longest
+    # suffix); K4's R on the prefix paths
+    gemm_m, kv_r = {}, {}
+    for path in ("q8/exact", "q8/prefix", "q4/prefix"):
+        for m, _, _ in runs[path]["shapes"]:
+            gemm_m.setdefault(m, path)
+        for key in runs[path]["kv_shapes"]:
+            kv_r.setdefault(key, path)
+    check_gemm_kernel(results, gemm_m)
+    check_dequant_kv_kernel(results, kv_r)
     profile_decode()
 
     # each row's launches come from the serve run of its own path; K3 runs
-    # on every path: its rows carry the north-star path's count at the
-    # row's (M, K, N), and every path's count beside it
+    # on every path: its rows carry the count of the first path above that
+    # launched the row's (M, K, N), and every path's count beside it; K4
+    # rows carry their path's count at the row's (mode, R)
     kernels = []
     for row in results:
         row = dict(row)
         key = row.pop("counter")
-        if isinstance(key, tuple):
+        if isinstance(key, tuple) and key[0] == "kv":
+            row["launches"] = runs[row["path"]]["kv_shapes"].get(key[1:], 0)
+        elif isinstance(key, tuple):
             row["launches"] = runs[row["path"]]["shapes"].get(key, 0)
             row["launches_by_path"] = {p: r["shapes"].get(key, 0)
                                        for p, r in runs.items()}

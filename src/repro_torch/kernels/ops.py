@@ -1,8 +1,8 @@
 """Dispatch layer between the model and the kernels.
 
-The wrappers in ``paged_attention`` and ``lut_dequant_gemm`` launch the
-CUDA kernels for CUDA tensors and run their plain versions for CPU
-tensors; this module adapts the model's layouts to them, holds the
+The wrappers in ``paged_attention``, ``lut_dequant_gemm`` and
+``lut_dequant_kv`` launch the CUDA kernels for CUDA tensors and run their
+plain versions for CPU tensors; this module adapts the model's layouts to them, holds the
 per-device constant tables (the exp LUT, the q4 codebook) and reads or
 resets the wrappers' launch counters.
 """
@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import lut_dequant_gemm as _gemm
+from repro_torch.kernels import lut_dequant_kv as _dequant_kv
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import ref
 from repro_torch.quant import tile_quant as TQ
@@ -20,6 +21,7 @@ KERNELS = {
     "paged_attention": _paged.paged_attention,
     "quant_paged_attention": _paged.quant_paged_attention,
     "lut_dequant_gemm": _gemm.lut_dequant_gemm,
+    "lut_dequant_kv": _dequant_kv.lut_dequant_kv,
 }
 
 _TABLES: dict = {}
@@ -62,6 +64,7 @@ def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
     _gemm.lut_dequant_gemm.shapes.clear()
+    _dequant_kv.lut_dequant_kv.shapes.clear()
 
 
 def lut_dequant_matmul(x: torch.Tensor, qw: dict, *,
@@ -71,6 +74,29 @@ def lut_dequant_matmul(x: torch.Tensor, qw: dict, *,
     return _gemm.lut_dequant_gemm(
         x.contiguous(), qw["codes"], qw["scales"], qw["codebook"],
         scheme=TQ.infer_scheme(qw, group_size), group_size=group_size)
+
+
+def lut_dequant_gather(gathered):
+    """Dequantize a gathered quantized-pool view through K4 (identity on
+    fp tensors).
+
+    ``gathered``: {"codes", "scales"} with any leading dims over the
+    (Hkv, D) token slab, e.g. the (L, B, P, ...) prefix view of the
+    engine's partial prefill.  The leading dims are flattened to R slabs
+    for one kernel call and restored on the (..., Hkv, D) f32 result,
+    bit-identical to ``kv_quant.dequantize_kv``."""
+    if not isinstance(gathered, dict):
+        return gathered
+    from repro_torch.serving.kv_quant import kv_geometry
+
+    mode, gr, gc, d = kv_geometry(gathered)
+    codes, scales = gathered["codes"], gathered["scales"]
+    lead = codes.shape[:-2]
+    out = _dequant_kv.lut_dequant_kv(
+        codes.reshape(-1, *codes.shape[-2:]),
+        scales.reshape(-1, *scales.shape[-2:]), q4_codebook(codes.device),
+        mode=mode, gr=gr, gc=gc)
+    return out.reshape(*lead, codes.shape[-2], d)
 
 
 def paged_flash_decode(q, k_pool, v_pool, table, cache_len, *,

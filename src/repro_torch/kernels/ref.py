@@ -56,6 +56,33 @@ def dequant_matmul_ref(x, codes, scales, codebook, *, group_size: int = 32):
 
 
 # ---------------------------------------------------------------------------
+# K4: KV token-slab dequant
+# ---------------------------------------------------------------------------
+
+
+def lut_dequant_kv_ref(codes, scales, codebook, *, mode: str, gr: int,
+                       gc: int):
+    """Dequantize KV token slabs: codes (R, Hkv, Dc) int8 (q8) or packed
+    uint8 (q4, low nibble = even dim), scales (R, Hkv//gr, D//gc) f16,
+    codebook (16,) f32 (unused for q8) -> (R, Hkv, D) f32, where R
+    may stand for any leading dims.
+
+    Per element ``val(code) * f32(scale[r, h // gr, d // gc])`` with one
+    f32 multiply, ``val`` the int8 code (q8) or ``codebook[nibble]`` (q4,
+    the 16-entry LUT of §5.2.2).  ``kv_quant.dequantize_kv`` calls this
+    after reading (mode, gr, gc) off the leaf's shapes."""
+    from repro_torch.serving.kv_quant import _broadcast_scales, _unpack_q4
+
+    if mode == "q8":
+        vals = codes.float()
+    elif mode == "q4":
+        vals = codebook.float()[_unpack_q4(codes).long()]
+    else:
+        raise ValueError(f"mode must be q8 or q4, got {mode!r}")
+    return vals * _broadcast_scales(scales.float(), gr, gc)
+
+
+# ---------------------------------------------------------------------------
 # K1 / K2: paged decode attention (exact and LUT recurrences)
 # ---------------------------------------------------------------------------
 

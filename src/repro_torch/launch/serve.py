@@ -3,7 +3,7 @@ pool, on CUDA unless asked otherwise.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-1.5b \\
       --quantize --method best_of_n --budget 8 --tasks 4 \\
-      --continuous --paged --kv-quant q8
+      --continuous --paged --kv-quant q8 [--prefix-cache --fewshot 3]
 
 Weights are random, from a seeded generator (the repository ships no
 checkpoint).  ``--smoke`` selects the reduced config; ``--device cpu``
@@ -25,6 +25,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import api
 from repro_torch.quant.qlinear import cast_params, quantize_model_params
 from repro_torch.serving.engine import DecodeEngine
+from repro_torch.serving.prefix_cache import PrefixCache
 
 MAX_LEN = 256
 
@@ -56,6 +57,16 @@ def parse_args(argv=None):
                     choices=["none", "q8", "q4"],
                     help="store pool blocks tile-quantized (Q8 int8 / Q4 "
                          "packed codes + per-(2,16)-tile scales)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="keep completed prompt prefixes pinned in the "
+                         "paged KV pool (radix tree, LRU-evicted under "
+                         "pressure) so requests sharing a system prompt / "
+                         "few-shot header skip re-prefilling it; requires "
+                         "--paged --continuous")
+    ap.add_argument("--fewshot", type=int, default=0,
+                    help="prepend a shared header of N worked examples to "
+                         "every task prompt (the cross-request common "
+                         "prefix the cache exploits)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the "
                          "kernels' plain versions)")
@@ -102,19 +113,31 @@ def main(argv=None) -> list:
     engine, tok = build_engine(args)
     print(f"[serve] device={engine.device} arch={engine.cfg.name} "
           f"kv_quant={args.kv_quant}")
-    tasks = T.gen_dataset(123, args.tasks)
+    prefix_cache = None
+    if args.prefix_cache:
+        prefix_cache = PrefixCache(engine.pool)
+    if args.fewshot:
+        tasks = T.shared_prefix_dataset(123, args.tasks,
+                                        n_shots=args.fewshot)
+    else:
+        tasks = T.gen_dataset(123, args.tasks)
     spec = TTSSpec(method=args.method, budget=args.budget,
                    max_tokens=args.max_tokens)
     gen = torch.Generator(device=engine.device)
     gen.manual_seed(0)
     rows = sweep(engine, tok, tasks, [spec], gen, R.OracleVerifier(),
-                 n_slots=args.slots)
-    # leak check: after a full drain the pool holds no blocks
+                 n_slots=args.slots, prefix_cache=prefix_cache)
+    # leak check: after a full drain the pool holds only the prefix
+    # cache's pins
+    pinned = (prefix_cache.stats()["cached_blocks"]
+              if prefix_cache is not None else 0)
     in_use = engine.pool.blocks_in_use
-    if in_use:
+    if in_use != pinned:
         raise SystemExit(f"[serve] KV pool leak: {in_use} blocks still in "
-                         f"use after drain")
-    print(f"[serve] kv pool clean: {in_use} blocks in use after drain")
+                         f"use after drain (expected {pinned} "
+                         f"cache-pinned)")
+    print(f"[serve] kv pool clean: {in_use} blocks in use after drain "
+          f"({pinned} cache-pinned)")
     for r in rows:
         s = r["serving"]
         kv = s["kv"]
@@ -127,9 +150,18 @@ def main(argv=None) -> list:
               f"decode_tok_per_s={s['decode_tok_per_s']:.1f} "
               f"prefill_tokens={s['prefill_tokens']} "
               f"prefill_calls={s['prefill_calls']} "
+              f"calls_per_request={s['prefill_calls_per_request']:.2f} "
+              f"admission_batch_max={s['admission_batch_max']} "
               f"preemptions={s['preemptions']}")
         print(f"[serve] latency: step_time_p50={s['step_time_p50'] * 1e3:.1f}"
               f"ms step_time_p99={s['step_time_p99'] * 1e3:.1f}ms")
+        if "prefix_cache" in s:
+            pc = s["prefix_cache"]
+            print(f"[serve] prefix cache: hit_rate={pc['hit_rate']:.2f} "
+                  f"tokens_matched={pc['tokens_matched']} "
+                  f"prefill_tokens_saved={s['prefill_tokens_saved']} "
+                  f"cached_blocks={pc['cached_blocks']} "
+                  f"evictions={pc['evictions']}")
         print(f"[serve] paged kv: block_size={kv['block_size']} "
               f"kv_quant={kv['kv_quant']} "
               f"peak_blocks={kv['peak_blocks_in_use']} "

@@ -132,11 +132,18 @@ def paged_decode_attention(q, k_pool, v_pool, *, table, cache_len,
 
 def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, window: int, cache=None,
-                    cache_len=None):
+                    cache_len=None, prefix_kv=None, prefix_positions=None):
     """Attention block.  Returns (out, (k, v)).
 
     - prefill (``cache`` None): attention over x itself; returns the
       sequence's rope'd (k, v) for the caller to scatter into the pool.
+    - partial prefill: additionally ``prefix_kv`` = (k, v) of shape
+      (B, P, Hkv, D), the already-rope'd KV of a cached prompt prefix, and
+      ``prefix_positions`` (B, P), with invalid slots pushed past every
+      query position so the causal mask hides them.  ``x`` holds only the
+      uncached suffix (its ``positions`` start at each row's cached
+      length); queries attend over prefix + suffix, and only the suffix's
+      (k, v) is returned.  Rows may carry different cached lengths.
     - paged decode: ``cache`` = {"k", "v", "table"} with per-layer pool
       leaves (n_blocks, bs, Hkv, D) (or quantized dicts) and a (B, W)
       table; the current token's K/V is quantized if the pool is, written
@@ -153,7 +160,15 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
 
-    if cache is None:
+    if cache is None and prefix_kv is not None:
+        pk, pv = prefix_kv
+        kv_pos = torch.cat([prefix_positions, positions.expand(B, S)], dim=1)
+        o = chunked_attention(q, torch.cat([pk.to(k.dtype), k], dim=1),
+                              torch.cat([pv.to(v.dtype), v], dim=1),
+                              q_positions=positions, kv_positions=kv_pos,
+                              causal=True, window=window,
+                              softcap=cfg.logit_softcap)
+    elif cache is None:
         o = chunked_attention(q, k, v, q_positions=positions,
                               kv_positions=positions, causal=True,
                               window=window, softcap=cfg.logit_softcap)

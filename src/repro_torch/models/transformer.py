@@ -104,10 +104,12 @@ def pool_layer(pool, layer: int):
 # ---------------------------------------------------------------------------
 
 
-def _layer(p, x, cfg, *, positions, window, cache=None, cache_len=None):
+def _layer(p, x, cfg, *, positions, window, cache=None, cache_len=None,
+           prefix_kv=None, prefix_positions=None):
     h, kv = L.attention_block(
         p["attn"], L.rmsnorm(p["attn_norm"], x, cfg.norm_eps), cfg,
-        positions=positions, window=window, cache=cache, cache_len=cache_len)
+        positions=positions, window=window, cache=cache, cache_len=cache_len,
+        prefix_kv=prefix_kv, prefix_positions=prefix_positions)
     x = x + h
     x = x + L.swiglu(p["ffn"], L.rmsnorm(p["ffn_norm"], x, cfg.norm_eps))
     return x, kv
@@ -119,18 +121,37 @@ def _head(params, cfg):
 
 def forward(params, tokens, cfg: ModelConfig, *,
             logit_positions: Optional[torch.Tensor] = None,
-            return_kv: bool = False):
+            return_kv: bool = False, prefix: Optional[dict] = None):
     """Full-sequence forward.  tokens: (B, S).  Returns (logits, kvs):
     logits (B, S, V) f32, or (B, V) at ``logit_positions`` (B,); kvs the
-    per-layer rope'd (k, v) of shape (B, S, Hkv, D) when ``return_kv``."""
+    per-layer rope'd (k, v) of shape (B, S, Hkv, D) when ``return_kv``.
+
+    ``prefix``: a cached-prefix handle for partial prefill, {"k", "v":
+    (L, B, P, Hkv, D) already-rope'd per-layer prefix KV, "len": (B,)
+    int32 cached lengths}.  ``tokens`` then holds only the uncached
+    suffix: token j of row b sits at position ``len[b] + j``, queries
+    attend over prefix + suffix, and the returned KV covers the suffix
+    alone.  Prefix slots at or past a row's cached length get position
+    ``P + S``, past every query, so the causal mask hides them."""
     dtype = getattr(torch, cfg.dtype)
     x = L.embed(params["embedding"], tokens, dtype)
     B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device)[None].expand(B, S)
+    arange = torch.arange(S, dtype=torch.int32, device=tokens.device)[None]
+    prefix_positions = None
+    if prefix is None:
+        positions = arange.expand(B, S)
+    else:
+        offset = prefix["len"].to(torch.int32)
+        positions = offset[:, None] + arange
+        P = prefix["k"].shape[2]
+        parr = torch.arange(P, dtype=torch.int32, device=tokens.device)[None]
+        prefix_positions = torch.where(parr < offset[:, None], parr,
+                                       torch.full_like(parr, P + S))
     kvs = []
-    for lp, w in zip(params["layers"], layer_windows(cfg)):
-        x, kv = _layer(lp, x, cfg, positions=positions, window=w)
+    for i, (lp, w) in enumerate(zip(params["layers"], layer_windows(cfg))):
+        pkv = None if prefix is None else (prefix["k"][i], prefix["v"][i])
+        x, kv = _layer(lp, x, cfg, positions=positions, window=w,
+                       prefix_kv=pkv, prefix_positions=prefix_positions)
         if return_kv:
             kvs.append(kv)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -163,7 +184,35 @@ def _scatter_prefill_blocks(pool, kv, table, block_size: int) -> None:
         pool[blocks] = payload.to(pool.dtype)
 
 
-def prefill(params, tokens, cfg: ModelConfig, *, lengths, paged: dict):
+def _scatter_suffix_blocks(pool, kv, table, block_size: int, start) -> None:
+    """Write suffix KV (B, S, Hkv, D) into one layer's pool blocks at a
+    per-row offset, in place: row b's token j lands at position
+    ``start[b] + j``, i.e. pool[table[b, pos // bs], pos % bs].
+
+    Position by position, not whole blocks, because a mid-block cached
+    prefix leaves the first suffix tokens inside a partly filled tail
+    block whose earlier offsets must survive.  Positions past the table
+    (padding) are clamped to its last slot: an unattended offset or the
+    scratch block.  Quantized groups never span tokens, so per-position
+    writes of codes and scales are exact."""
+    from repro_torch.serving.kv_quant import quantize_for_pool
+
+    S = kv.shape[1]
+    W = table.shape[1]
+    pos = start.to(torch.int64)[:, None] + torch.arange(S, device=kv.device)
+    pos = torch.clamp_max(pos, W * block_size - 1)           # (B, S)
+    blk = torch.gather(table.long(), 1, pos // block_size)
+    off = pos % block_size
+    payload = quantize_for_pool(kv, pool)
+    if isinstance(pool, dict):
+        for name in ("codes", "scales"):
+            pool[name][blk, off] = payload[name].to(pool[name].dtype)
+    else:
+        pool[blk, off] = payload.to(pool.dtype)
+
+
+def prefill(params, tokens, cfg: ModelConfig, *, lengths, paged: dict,
+            prefix: Optional[dict] = None):
     """Run right-padded prompts and scatter their KV into a paged cache.
 
     tokens: (B, S); lengths: (B,) true prompt lengths; ``paged``:
@@ -171,17 +220,25 @@ def prefill(params, tokens, cfg: ModelConfig, *, lengths, paged: dict):
     (or quantized dicts) and a (B, W) int32 table whose first
     ceil(S / bs) columns hold each row's prompt blocks.  The pools are
     written in place.  Returns the (B, V) f32 logits at each row's last
-    prompt position."""
+    prompt position.
+
+    ``prefix``: a cached-prefix handle (see :func:`forward`) for partial
+    prefill; ``tokens``/``lengths`` then describe only the uncached
+    suffix, whose KV is written into the table at offset
+    ``prefix["len"]`` while the cached positions stay untouched."""
     from repro_torch.serving.kv_quant import pool_block_size
 
-    logits, kvs = forward(params, tokens, cfg,
-                          logit_positions=lengths - 1, return_kv=True)
+    logits, kvs = forward(params, tokens, cfg, logit_positions=lengths - 1,
+                          return_kv=True, prefix=prefix)
     bs = pool_block_size(paged["k"], axis=2)
     for layer, (k, v) in enumerate(kvs):
-        _scatter_prefill_blocks(pool_layer(paged["k"], layer), k,
-                                paged["table"], bs)
-        _scatter_prefill_blocks(pool_layer(paged["v"], layer), v,
-                                paged["table"], bs)
+        for pool, new in ((paged["k"], k), (paged["v"], v)):
+            if prefix is None:
+                _scatter_prefill_blocks(pool_layer(pool, layer), new,
+                                        paged["table"], bs)
+            else:
+                _scatter_suffix_blocks(pool_layer(pool, layer), new,
+                                       paged["table"], bs, prefix["len"])
     return logits
 
 

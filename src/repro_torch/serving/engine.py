@@ -5,7 +5,8 @@ parallel test-time-scaling samples occupy for almost nothing; the engine
 treats batch as the first-class resource:
 
 * ``prefill`` runs each prompt once and yields the next-token logits at
-  each row's true last position;
+  each row's true last position; with a cached prefix (a prefix-cache
+  hit) it runs only the uncached suffix, reading the cached blocks;
 * ``fork`` replicates rows so N samples share one prompt's prefill — on
   the paged pool a refcount bump, zero KV copied until copy-on-write
   splits a shared block at its first divergent write;
@@ -41,6 +42,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import api
 from repro_torch.serving.kv_pool import KVPool, OutOfBlocks, blocks_for
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.sampler import SamplerConfig, logprobs_of, sample
 
 
@@ -108,14 +110,30 @@ class DecodeEngine:
 
     # -- prefill ------------------------------------------------------------
     def prefill(self, tokens: torch.Tensor,
-                lengths: Optional[torch.Tensor] = None) -> GenState:
+                lengths: Optional[torch.Tensor] = None, *,
+                cached_table=None, cached_lens=None) -> GenState:
         """tokens: (B, S) right-padded prompts; lengths: (B,) true lengths.
-        Allocates the prompts' blocks (host) and scatters their KV in."""
+        Allocates the prompts' blocks (host) and scatters their KV in.
+
+        Partial prefill: ``cached_table`` (B, Wc) block ids covering each
+        row's cached prompt prefix plus ``cached_lens`` (B,) cached
+        lengths switch ``tokens``/``lengths`` to describing the uncached
+        suffix only.  The model runs over the suffix while attending over
+        the cached blocks; each row must arrive holding one reference per
+        cached block (the lease ``PrefixCache.match`` takes), which the
+        resulting state owns.  A cached length that is not a block
+        multiple has its partly used tail block copy-on-written before
+        the suffix extends it, so shared cache blocks are never written.
+        Every row needs at least one suffix token.  Rows may carry ragged
+        cached lengths (aligned or mid-block) and suffix lengths."""
         B, S = tokens.shape
         tokens = tokens.to(self.device)
         if lengths is None:
             lengths = torch.full((B,), S, dtype=torch.int32)
         lens_h = np.asarray(lengths.cpu(), np.int64)
+        if cached_table is not None:
+            return self._prefill_with_prefix(tokens, lens_h, cached_table,
+                                             cached_lens)
         bs = self.pool.block_size
         per_row = [blocks_for(n, bs) for n in lens_h]
         if not self.pool.reserve(sum(per_row)):
@@ -129,12 +147,107 @@ class DecodeEngine:
         logits = self.model.prefill(self.params, tokens, self.cfg,
                                     lengths=lengths,
                                     paged=self._cache(table))
+        return self._prefilled_state(table, n_blocks, lengths, logits)
+
+    def _prefilled_state(self, table, n_blocks, cache_len,
+                         logits) -> GenState:
+        B = table.shape[0]
         return GenState(
-            table=table, n_blocks=n_blocks, cache_len=lengths,
+            table=table, n_blocks=n_blocks, cache_len=cache_len,
             pending_logits=logits.float(),
             done=torch.zeros((B,), dtype=torch.bool, device=self.device),
             logprob_sum=torch.zeros((B,), device=self.device),
             n_gen=torch.zeros((B,), dtype=torch.int32, device=self.device))
+
+    def _prefill_with_prefix(self, tokens, lens_h, cached_table,
+                             cached_lens) -> GenState:
+        """Host planning for a cached-prefix partial prefill: build each
+        row's full block table (cached blocks, tail CoW, fresh suffix
+        blocks), then run the suffix-only device pass.
+
+        Every misaligned row's partly used cached tail block is
+        copy-on-written in one ``pool.cow`` call and every fresh suffix
+        block comes from one ``pool.alloc``.  The whole need is reserved
+        up front, so an :class:`OutOfBlocks` raise leaves pool and leases
+        untouched."""
+        B = tokens.shape[0]
+        bs = self.pool.block_size
+        cach_h = np.asarray(cached_lens, np.int64).ravel()
+        if cach_h.shape[0] != B:
+            raise ValueError(f"cached_lens has {cach_h.shape[0]} rows for a "
+                             f"batch of {B}")
+        if (lens_h < 1).any():
+            raise ValueError("cached-prefix prefill needs >= 1 suffix token "
+                             "per row (the next-token logits come from the "
+                             "suffix)")
+        totals = cach_h + lens_h
+        if (totals > self.max_len - 1).any():
+            raise ValueError(
+                f"cached + suffix length ({int(totals.max())}) overruns the "
+                f"usable sequence length {self.max_len - 1}")
+        ctab = np.asarray(cached_table, np.int64)
+        n_full = cach_h // bs
+        rem = cach_h % bs
+        n_tot = np.array([blocks_for(t, bs) for t in totals])
+        # tail CoW (one per misaligned row) + fresh suffix blocks
+        n_new = n_tot - (n_full + (rem > 0))
+        needed = int(n_new.sum() + (rem > 0).sum())
+        if not self.pool.reserve(needed):
+            raise OutOfBlocks(needed, self.pool.free_blocks)
+        table = np.zeros((B, self.table_width), np.int32)
+        for i in range(B):
+            table[i, :n_full[i]] = ctab[i, :n_full[i]]
+        # each misaligned row's lease on its cached tail moves to a private
+        # copy (cow drops one source reference per block), which the
+        # suffix scatter then extends at offsets [rem, bs)
+        cow_rows = [i for i in range(B) if rem[i]]
+        new_tails = self.pool.cow([int(ctab[i, n_full[i]])
+                                   for i in cow_rows])
+        for i, nt in zip(cow_rows, new_tails):
+            table[i, n_full[i]] = nt
+        fresh = self.pool.alloc(int(n_new.sum())) if n_new.any() else []
+        off = 0
+        for i in range(B):
+            if n_new[i]:
+                have = int(n_full[i] + (1 if rem[i] else 0))
+                table[i, have:n_tot[i]] = fresh[off:off + int(n_new[i])]
+                off += int(n_new[i])
+        # gather only the columns some row has cached (the batch max)
+        prefix_w = max(1, int(-(-int(cach_h.max()) // bs)))
+        cache = self._cache(table)
+        prefix = self._gather_prefix(cache["table"],
+                                     self._vec(cach_h, torch.int32),
+                                     prefix_w=prefix_w)
+        logits = self.model.prefill(self.params, tokens, self.cfg,
+                                    lengths=self._vec(lens_h, torch.int32),
+                                    paged=cache, prefix=prefix)
+        return self._prefilled_state(table, n_tot.astype(np.int32),
+                                     self._vec(totals, torch.int32), logits)
+
+    def _gather_prefix(self, table: torch.Tensor, lens: torch.Tensor, *,
+                       prefix_w: int) -> dict:
+        """Gather the first ``prefix_w`` table columns of every row from
+        the stacked pool leaves (L, n_blocks, bs, ...) into a dense
+        (L, B, prefix_w * bs, Hkv, D) prefix view, dequantized once for K
+        and once for V through ``ops.lut_dequant_gather``.  Slots past a
+        row's cached length are masked inside ``forward`` via ``lens``."""
+        from repro_torch.kernels import ops
+
+        ptab = table[:, :prefix_w].long()
+
+        def leaf(a):
+            g = a[:, ptab]  # (L, B, prefix_w, bs, *slab)
+            return g.reshape(g.shape[0], g.shape[1], -1, *g.shape[4:])
+
+        def gather(pool):
+            if isinstance(pool, dict):
+                pool = {name: leaf(a) for name, a in pool.items()}
+            else:
+                pool = leaf(pool)
+            return ops.lut_dequant_gather(pool)
+
+        return {"k": gather(self.pool.k), "v": gather(self.pool.v),
+                "len": lens}
 
     def empty_state(self, batch: int) -> GenState:
         """An all-free decoding state of ``batch`` rows (every row done,
@@ -343,20 +456,45 @@ class SchedulerMetrics:
         self.completed_samples = 0
         self.preemptions = 0
         self.wall_s = 0.0
-        self.prefill_calls = 0
+        # prefix cache (zero without one): one lookup per admitted
+        # request; a hit served some prefix of the prompt from cached
+        # blocks, and prefill_tokens_saved counts the prompt tokens whose
+        # prefill was skipped
+        self.cache_lookups = 0
+        self.cache_hits = 0
+        self.prefill_tokens_saved = 0
         self.peak_kv_bytes = 0   # dtype-aware paged KV high-water mark
         self.kv_quant = "none"
+        # one entry per admission prefill call: the requests it admitted
+        self.admission_batch_sizes: list[int] = []
 
     def record(self, rec: StepRecord):
         self.records.append(rec)
+
+    def record_prefill(self, batch_size: int):
+        """Account one admission prefill call covering ``batch_size``
+        requests (a TTS group counts as one request: one prefill,
+        forked)."""
+        self.admission_batch_sizes.append(batch_size)
+
+    @property
+    def prefill_calls(self) -> int:
+        return len(self.admission_batch_sizes)
 
     def summary(self) -> dict:
         steps = len(self.records)
         decode = sum(r.occupancy for r in self.records)
         step_ts = [r.wall_s for r in self.records]
+        admitted = sum(r.admitted for r in self.records)
+        sizes = self.admission_batch_sizes
         return {
-            "admitted_requests": sum(r.admitted for r in self.records),
+            "admitted_requests": admitted,
             "prefill_calls": self.prefill_calls,
+            "prefill_calls_per_request": (self.prefill_calls / admitted
+                                          if admitted else 0.0),
+            "admission_batch_max": max(sizes, default=0),
+            "admission_batch_avg": (sum(sizes) / len(sizes)
+                                    if sizes else 0.0),
             "steps": steps,
             "n_slots": self.n_slots,
             "avg_slot_occupancy": (decode / (steps * self.n_slots)
@@ -371,6 +509,11 @@ class SchedulerMetrics:
                                if self.wall_s > 0 else 0.0),
             "decode_tok_per_s": (decode / self.wall_s
                                  if self.wall_s > 0 else 0.0),
+            "prefix_cache_lookups": self.cache_lookups,
+            "prefix_cache_hits": self.cache_hits,
+            "prefix_cache_hit_rate": (self.cache_hits / self.cache_lookups
+                                      if self.cache_lookups else 0.0),
+            "prefill_tokens_saved": self.prefill_tokens_saved,
             "peak_kv_bytes": self.peak_kv_bytes,
             "kv_quant": self.kv_quant,
             "step_time_p50": percentile(step_ts, 50),
@@ -396,14 +539,35 @@ class ContinuousScheduler:
     When a decode step cannot get its blocks (:class:`OutOfBlocks`), the
     youngest live request is preempted — slots released, blocks freed,
     requeued at the head to rerun from scratch — and the step retried.
+
+    With a :class:`~repro_torch.serving.prefix_cache.PrefixCache`
+    attached, admission is cache-aware: each request matches the longest
+    cached prefix of its prompt, leases those blocks and prefills only
+    the uncached suffix (the engine's partial prefill); its full prompt
+    blocks are inserted into the tree right after, so a later admission
+    in the same step can hit, and completed rows re-insert on release.
+    Runs of plain requests at the queue head are matched together,
+    bucketed by cached width (``ceil(cached_len / block_size)``) and
+    admitted through one batched partial prefill per bucket; a candidate
+    that would match a longer prefix once an earlier request of the same
+    run has inserted is deferred to the next round of the same step, so
+    hits, leases and token counts equal one-at-a-time admission.  The
+    cache is the pool's pressure hook, so a block shortage evicts cached
+    leaves before it preempts.  One admission prefill carries at most as
+    many requests as there are free slots.
     """
 
     def __init__(self, engine: DecodeEngine, n_slots: int = 8,
-                 prompt_len: int = 32, stop_ids: tuple = ()):
+                 prompt_len: int = 32, stop_ids: tuple = (),
+                 prefix_cache: Optional[PrefixCache] = None):
         self.engine = engine
         self.n_slots = n_slots
         self.prompt_len = prompt_len
         self.stop_ids = tuple(stop_ids) or (engine.eos_id,)
+        if prefix_cache is not None and prefix_cache.pool is not engine.pool:
+            raise ValueError("prefix_cache is bound to a different KVPool "
+                             "than the engine's")
+        self.cache = prefix_cache
         self.queue: deque[Request] = deque()
         self.slots: list[Optional[_Slot]] = [None] * n_slots
         self.state: Optional[GenState] = None   # built on first admission
@@ -468,13 +632,16 @@ class ContinuousScheduler:
             self.state = self.engine.empty_state(self.n_slots)
         self.state = self.engine.merge_rows(self.state, st, rows)
 
+    def _count_prefill(self, batch_size: int):
+        self.metrics.record_prefill(batch_size)
+
     def _admit_plain(self, reqs: list, free: list) -> int:
         """One batched prefill + one merge for a run of plain requests."""
         padded = [self._pad(r.prompt) for r in reqs]
         st = self.engine.prefill(
             torch.stack([t for t, _ in padded]),
             torch.tensor([n for _, n in padded], dtype=torch.int32))
-        self.metrics.prefill_calls += 1
+        self._count_prefill(len(reqs))
         rows = [free.pop(0) for _ in reqs]
         self._merge(st, rows)
         for req, r in zip(reqs, rows):
@@ -489,7 +656,7 @@ class ContinuousScheduler:
         toks, length = self._pad(req.prompt)
         st = self.engine.prefill(toks[None],
                                  torch.tensor([length], dtype=torch.int32))
-        self.metrics.prefill_calls += 1
+        self._count_prefill(1)
         if n > 1:
             st = self.engine.fork(st, n)
         rows = [free.pop(0) for _ in range(n)]
@@ -499,12 +666,172 @@ class ContinuousScheduler:
                                   admitted_step=self.step_count)
         return length
 
+    # -- cache-aware admission -----------------------------------------------
+    def _insert_prompt(self, toks: list, table_row) -> None:
+        """Record a prompt's full blocks in the prefix cache (the insert
+        shared by admission and release)."""
+        n_ins = len(toks) // self.engine.pool.block_size
+        if n_ins:
+            self.cache.insert(toks, np.asarray(table_row)[:n_ins])
+
+    @staticmethod
+    def _host_prompt(req: Request) -> list:
+        return [int(t) for t in req.prompt.cpu().numpy().ravel()]
+
+    def _prefill_suffixes(self, suffixes: list, blocks: list,
+                          clens: list) -> GenState:
+        """One prefill of suffixes right-padded to the longest of them:
+        partial when any row has a cached prefix, else the plain paged
+        prefill (which skips the prefix gather a miss would pay for
+        nothing).  The JAX scheduler pads to ``prompt_len`` so jit sees
+        one shape; eager execution gains nothing from that, and padding a
+        short hit suffix to the full prompt would spend the device time
+        the cache saves on padding rows."""
+        toks = torch.full((len(suffixes), max(map(len, suffixes))),
+                          self.engine.pad_id, dtype=torch.int32)
+        for i, s in enumerate(suffixes):
+            toks[i, :len(s)] = torch.tensor(s, dtype=torch.int32)
+        lens = torch.tensor([len(s) for s in suffixes], dtype=torch.int32)
+        if not any(clens):
+            return self.engine.prefill(toks, lens)
+        ctab = np.zeros((len(suffixes), self.engine.table_width), np.int32)
+        for i, b in enumerate(blocks):
+            ctab[i, :len(b)] = b
+        return self.engine.prefill(toks, lens, cached_table=ctab,
+                                   cached_lens=np.array(clens, np.int64))
+
+    def _count_lookup(self, clen: int) -> None:
+        self.metrics.cache_lookups += 1
+        if clen:
+            self.metrics.cache_hits += 1
+            self.metrics.prefill_tokens_saved += clen
+
+    def _admit_cached_group(self, req: Request, free: list) -> int:
+        """Cache-aware admission of one TTS group: match, lease, one
+        partial prefill of the uncached suffix, insert the prompt's full
+        blocks, fork into ``n_samples`` slots.  Returns the suffix tokens
+        prefilled, or -1 when the pool cannot cover the group's new blocks
+        even after eviction (the head then waits, holding no lease)."""
+        toks = self._host_prompt(req)
+        plen = len(toks)
+        # at least one suffix token must be recomputed for the logits
+        blocks, clen = self.cache.match(toks[:plen - 1])
+        need = blocks_for(plen, self.engine.pool.block_size) - \
+            clen // self.engine.pool.block_size
+        if not self.engine.pool.reserve(need):
+            if blocks:
+                self.engine.pool.release(blocks)  # abandon the lease
+            return -1
+        suffix = toks[clen:]
+        st = self._prefill_suffixes([suffix], [blocks], [clen])
+        self._count_prefill(1)
+        self._count_lookup(clen)
+        self._insert_prompt(toks, st.table[0])
+        n = max(1, req.n_samples)
+        if n > 1:
+            st = self.engine.fork(st, n)
+        rows = [free.pop(0) for _ in range(n)]
+        self._merge(st, rows)
+        for j, r in enumerate(rows):
+            self.slots[r] = _Slot(req=req, sample_idx=j,
+                                  admitted_step=self.step_count)
+        return len(suffix)
+
+    def _collect_cached_run(self, free: list) -> list:
+        """Pop a run of plain requests off the queue head for one batched
+        cache-aware admission round, leasing each as it is collected.
+        Entries are {"req", "toks", "blocks", "clen"}.
+
+        Stops at a TTS group, the free-slot count, a request the pool cannot
+        cover even after eviction (it stays at the head, holding no
+        lease), or a deferral: a candidate that would match a longer
+        prefix after an earlier same-run request's insert than the tree
+        holds now (``probe`` against ``potential_match``).  Block
+        reservations are cumulative across the run."""
+        bs = self.engine.pool.block_size
+        entries: list[dict] = []
+        pending = 0  # new blocks already promised to earlier entries
+        while (self.queue and self.queue[0].n_samples <= 1
+               and len(entries) < len(free)):
+            req = self.queue[0]
+            toks = self._host_prompt(req)
+            plen = len(toks)
+            if entries:
+                probe = self.cache.probe(toks[:plen - 1])
+                if any(self.cache.potential_match(toks[:plen - 1],
+                                                  e["toks"]) > probe
+                       for e in entries):
+                    break  # defer: a same-run insert will serve it better
+            blocks, clen = self.cache.match(toks[:plen - 1])
+            need = blocks_for(plen, bs) - clen // bs
+            if not self.engine.pool.reserve(pending + need):
+                if blocks:
+                    self.engine.pool.release(blocks)  # abandon the lease
+                break  # FIFO: the head waits for blocks
+            pending += need
+            self.queue.popleft()
+            entries.append({"req": req, "toks": toks, "blocks": blocks,
+                            "clen": clen})
+        return entries
+
+    def _admit_cached_rows(self, entries: list, free: list) -> int:
+        """Admit one collected run: one batched prefill per cached-width
+        bucket (misses, width 0, through the plain paged prefill), then
+        one ``insert_batch`` of the bucket's prompts.  Returns the suffix
+        tokens prefilled."""
+        bs = self.engine.pool.block_size
+        buckets: dict[int, list[dict]] = {}
+        for e in entries:
+            buckets.setdefault(-(-e["clen"] // bs), []).append(e)
+        suffix_tokens = 0
+        for wc in sorted(buckets):
+            group = buckets[wc]
+            suffixes = [e["toks"][e["clen"]:] for e in group]
+            st = self._prefill_suffixes(suffixes, [e["blocks"] for e in group],
+                                        [e["clen"] for e in group])
+            self._count_prefill(len(group))
+            self.cache.insert_batch(
+                (e["toks"], st.table[i, :len(e["toks"]) // bs])
+                for i, e in enumerate(group))
+            rows = [free.pop(0) for _ in group]
+            self._merge(st, rows)
+            for e, r in zip(group, rows):
+                self.slots[r] = _Slot(req=e["req"], sample_idx=0,
+                                      admitted_step=self.step_count)
+                self._count_lookup(e["clen"])
+            suffix_tokens += sum(len(x) for x in suffixes)
+        return suffix_tokens
+
+    def _admit_cached(self, free: list) -> tuple:
+        admitted = prefill_tokens = 0
+        while self.queue and free:
+            head = self.queue[0]
+            if max(1, head.n_samples) > len(free):
+                break  # FIFO: the group waits for enough free slots
+            if head.n_samples > 1:
+                got = self._admit_cached_group(head, free)
+                if got < 0:
+                    break  # FIFO: the head waits for blocks
+                self.queue.popleft()
+                admitted += 1
+                prefill_tokens += got
+                continue
+            entries = self._collect_cached_run(free)
+            if not entries:
+                break  # FIFO: the head waits for blocks
+            prefill_tokens += self._admit_cached_rows(entries, free)
+            admitted += len(entries)
+        return admitted, prefill_tokens
+
     def _admit(self) -> tuple:
         """Fill free slots from the queue (FIFO).  Admission stops when the
         head does not fit the free slots or the pool's free blocks (decode
-        growth is handled by preemption, not reservation).  Returns
+        growth is handled by preemption, not reservation).  With a prefix
+        cache, admission goes through the cache-aware path.  Returns
         (requests admitted, prompt tokens prefilled)."""
         free = [i for i, s in enumerate(self.slots) if s is None]
+        if self.cache is not None:
+            return self._admit_cached(free)
         admitted = prefill_tokens = 0
         blk_budget = self.engine.pool.free_blocks
         while self.queue and free:
@@ -606,14 +933,26 @@ class ContinuousScheduler:
             slot = self.slots[i]
             if bool(done_h[i]):          # sampled a stop id (excluded)
                 self._release(i, "stop", float(lp_h[i]), int(ng_h[i]))
-                released.append(i)
+                released.append((i, slot.req))
                 continue
             slot.tokens.append(int(toks_h[i]))
             if len(slot.tokens) >= slot.req.max_new_tokens:
                 self._release(i, "length", float(lp_h[i]), int(ng_h[i]))
-                released.append(i)
+                released.append((i, slot.req))
+        if released and self.cache is not None:
+            # re-insert completed prompts before their blocks go back to
+            # the pool: an LRU touch, or a restore of entries that pool
+            # pressure evicted mid-flight (full prompt blocks still hold
+            # valid prompt KV: they sit below the write frontier)
+            seen: set = set()
+            for r, req in released:
+                if req.req_id not in seen:  # one insert per group
+                    seen.add(req.req_id)
+                    self._insert_prompt(self._host_prompt(req),
+                                        self.state.table[r])
         if released:
-            self.state = self.engine.release_rows(self.state, released)
+            self.state = self.engine.release_rows(
+                self.state, [r for r, _ in released])
         self.metrics.peak_kv_bytes = max(
             self.metrics.peak_kv_bytes,
             self.engine.pool.peak_in_use * self._block_bytes)

@@ -19,7 +19,7 @@ pool blocks by id and must be used linearly.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -76,6 +76,12 @@ class KVPool:
         self._free: list[int] = list(range(n_blocks - 1, 0, -1))
         self.peak_in_use = 0
         self.cow_copies = 0
+        # Called with the shortfall (blocks still needed) when reserve()
+        # finds the free list short; the prefix cache registers its LRU
+        # eviction here, so cached-but-unreferenced blocks are reclaimed
+        # before a shortage becomes preemption.  It must only release
+        # blocks it owns a reference to.
+        self.pressure_hook: Optional[Callable[[int], int]] = None
 
     def _init_storage(self, cfg: ModelConfig, n_blocks: int,
                       block_size: int, dtype) -> dict:
@@ -129,9 +135,16 @@ class KVPool:
 
     # -- alloc / free / share ------------------------------------------------
     def reserve(self, n: int) -> bool:
-        """Whether the free list covers ``n`` blocks.  A successful reserve
-        promises that an immediately following :meth:`alloc`/:meth:`cow`
-        of ``n`` blocks cannot fail (single-threaded host discipline)."""
+        """Whether the free list covers ``n`` blocks, after asking the
+        pressure hook to reclaim the shortfall when it does not.  A
+        successful reserve promises that an immediately following
+        :meth:`alloc`/:meth:`cow` of ``n`` blocks cannot fail
+        (single-threaded host discipline); the pool never evicts on its
+        own."""
+        if n <= len(self._free):
+            return True
+        if self.pressure_hook is not None:
+            self.pressure_hook(n - len(self._free))
         return n <= len(self._free)
 
     def alloc(self, n: int = 1) -> list[int]:

@@ -94,15 +94,15 @@ def quantize_kv(x: torch.Tensor, *, mode: str, gr: int, gc: int,
 
 
 def dequantize_kv(q: dict, *, dtype=torch.float32) -> torch.Tensor:
-    """Inverse of :func:`quantize_kv`; leading dims are free."""
+    """Inverse of :func:`quantize_kv`; leading dims are free.  The
+    arithmetic is K4's plain version, ``ref.lut_dequant_kv_ref``."""
+    from repro_torch.kernels.ref import lut_dequant_kv_ref
+
     mode, gr, gc, _ = kv_geometry(q)
-    if mode == "q8":
-        vals = q["codes"].float()
-    else:
-        cb = get_codebook(Q4_CODEBOOK, device=q["codes"].device)
-        vals = cb[_unpack_q4(q["codes"]).long()]  # 16-entry LUT (§5.2.2)
-    sc = _broadcast_scales(q["scales"].float(), gr, gc)
-    return (vals * sc).to(dtype)
+    cb = (get_codebook(Q4_CODEBOOK, device=q["codes"].device)
+          if mode == "q4" else None)
+    return lut_dequant_kv_ref(q["codes"], q["scales"], cb, mode=mode,
+                              gr=gr, gc=gc).to(dtype)
 
 
 def quantize_for_pool(x: torch.Tensor, pool_leaf):

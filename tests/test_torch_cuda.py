@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import lut_dequant_gemm as G
+from repro_torch.kernels import lut_dequant_kv as K4
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.quant import tile_quant as TQ
@@ -106,3 +107,33 @@ def test_cuda_paged_attention_rejects_short_rows(cuda, kind):
     args = [_to(a, cuda) for a in _case("fp", bs=64, D=64)]
     with pytest.raises(ValueError, match="16-byte"):
         PA.paged_attention(*args, None, exp_mode="exact")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["q8", "q4"])
+@pytest.mark.parametrize("R", [1, 37, 1792, 12544])
+def test_cuda_lut_dequant_kv_matches_plain_bitwise(cuda, mode, R):
+    """The partial-prefill shapes of qwen2.5-1.5b (R = 28 layers x 64
+    cached tokens x 1 or 7 rows; Hkv 2, D 128) and ragged R: the same
+    single f32 multiply per element, so bit for bit."""
+    gen = torch.Generator().manual_seed(R)
+    gr, gc = kv_tile_geometry(2, 128)
+    q = _to(quantize_kv(torch.randn((R, 2, 128), generator=gen) * 3.0,
+                        mode=mode, gr=gr, gc=gc), cuda)
+    before = K4.lut_dequant_kv.launches
+    got = ops.lut_dequant_gather(q)
+    assert K4.lut_dequant_kv.launches == before + 1
+    want = K4.plain_lut_dequant_kv(q["codes"], q["scales"],
+                                   ops.q4_codebook(cuda), mode=mode, gr=gr,
+                                   gc=gc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_lut_dequant_kv_rejects_short_rows(cuda):
+    """head_dim 8 gives 4-byte q4 code rows, which the kernel's 16-byte
+    loads do not take (the plain version covers them on the CPU)."""
+    q = _to(quantize_kv(torch.randn((4, 1, 8)), mode="q4", gr=1, gc=8), cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.lut_dequant_gather(q)
