@@ -31,10 +31,26 @@ Phases, one JSON line each:
    must drain to the cache's pinned blocks, and each run must launch its
    kernels exactly as often as its steps and prefills require (counters
    reset just before each run, read just after);
-6. ``profile``: where a decode step's time goes, under ``torch.profiler``.
+6. ``flash``: ``ops.flash_attention`` (K5) in its three exp modes (lut,
+   poly, exact) at qwen2.5-1.5b's attention geometry (12 query heads, 2 KV
+   heads, head_dim 128, causal) for (B, S) = (1, 2048), (8, 256) and
+   (1, 79), and at the JAX package's Fig. 14 and Table 5 shapes; every
+   output within 2e-3 of the plain version on the same CUDA tensors and
+   within 2e-2 of f32 attention, and the full-width cases timed beside
+   their bound, the plain version and ``F.scaled_dot_product_attention``
+   (timed only);
+7. ``quantize``: ``ops.tile_quantize_op`` (K6) over the 168 Q4
+   projections of full-width qwen2.5-1.5b (28 layers x q, k, v, o, gate,
+   up; the f32 weights the serve quantizes, seed 0); codes and scales
+   exactly equal to the plain version, >= 99.9% of 4-bit codes equal to
+   the offline quantizer's, and each leaf through K3 at M = 8 against
+   ``dequant_matmul_ref``; each projection shape timed;
+8. ``profile``: where a decode step's time goes, under ``torch.profiler``.
 
-Then a ``{"kernels": [...]}`` line (each row's ``launches`` from the serve
-run of its own path), the nvidia-smi line, and last
+Phases 6 and 7 reset the counters, drive their entry point once per case,
+and read the counts before any comparison or timing launches.  Then a
+``{"kernels": [...]}`` line (each row's ``launches`` from the run of its
+own path or phase), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 non-zero and prints no ok line.
 """
@@ -57,11 +73,15 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 PAGED_SRC = "src/repro_torch/kernels/csrc/paged_attention.cu"
 GEMM_SRC = "src/repro_torch/kernels/csrc/lut_dequant_gemm.cu"
 DEQUANT_SRC = "src/repro_torch/kernels/csrc/lut_dequant_kv.cu"
+FLASH_SRC = "src/repro_torch/kernels/csrc/lut_softmax_attention.cu"
+QUANT_SRC = "src/repro_torch/kernels/csrc/tile_quantize.cu"
 REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention.py:160",
     "quant_paged_attention": "src/repro/kernels/paged_attention.py:269",
     "lut_dequant_gemm": "src/repro/kernels/lut_dequant_gemm.py:71",
     "lut_dequant_kv": "src/repro/kernels/lut_dequant_gemm.py:148",
+    "lut_softmax_attention": "src/repro/kernels/lut_softmax_attention.py:131",
+    "tile_quantize": "src/repro/kernels/tile_quantize.py:35",
 }
 GEMM_KN = ((1536, 1536), (1536, 256), (1536, 8960))  # qwen2.5-1.5b Q4 (K, N)
 SERVE_ARGS = ["--arch", "qwen2.5-1.5b", "--quantize", "--method",
@@ -86,6 +106,8 @@ def time_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     back to back on the device, without the host's launch overhead."""
     import torch
 
+    fn()  # one-time set-up (library handles, per-shape plans) is not timed
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
@@ -394,6 +416,247 @@ def check_dequant_kv_kernel(results: list, kv_r: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# K5 and K6 through their ops entry points
+# ---------------------------------------------------------------------------
+
+
+def _case(name, B, Sq, Skv, Hq, Hkv, D, causal, kv_is_k=False, timed=False):
+    return dict(name=name, B=B, Sq=Sq, Skv=Skv, Hq=Hq, Hkv=Hkv, D=D,
+                causal=causal, kv_is_k=kv_is_k, timed=timed)
+
+
+# qwen2.5-1.5b's attention (12 query heads, 2 KV heads, head_dim 128,
+# causal) at a long prefill, a batch of short ones and the serve runs'
+# cold prefill length 79 (prime: one 79-row KV block); then the JAX
+# package's Fig. 14 shapes (benchmarks/kernel_ablation.py: B 2, H 4, D 64,
+# non-causal, k = v, 8 and 16 query rows) and its Table 5 shape
+FLASH_CASES = (
+    _case("qwen2.5-1.5b/B1xS2048", 1, 2048, 2048, 12, 2, 128, True,
+          timed=True),
+    _case("qwen2.5-1.5b/B8xS256", 8, 256, 256, 12, 2, 128, True, timed=True),
+    _case("qwen2.5-1.5b/B1xS79", 1, 79, 79, 12, 2, 128, True, timed=True),
+    _case("fig14/q1_kv1024", 2, 8, 1024, 4, 4, 64, False, kv_is_k=True),
+    _case("fig14/q16_kv2048", 2, 16, 2048, 4, 4, 64, False, kv_is_k=True),
+    _case("tbl5", 2, 256, 256, 4, 4, 64, True),
+)
+FLASH_MODES = ("lut", "poly", "exact")
+# max |out - f32 attention| the JAX package recorded (BENCH_kernels.json)
+JAX_VS_F32 = {("fig14/q1_kv1024", "lut"): 4.79e-05,
+              ("fig14/q1_kv1024", "exact"): 3.37e-05,
+              ("fig14/q16_kv2048", "lut"): 3.37e-05,
+              ("fig14/q16_kv2048", "exact"): 3.37e-05,
+              ("tbl5", "lut"): 5.21e-04}
+
+
+def flash_inputs(c: dict, dev: str = "cuda"):
+    """(B, S, H, D) fp16 q, k, v from a numpy seed, x 0.5 normal."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(c["Sq"] * 7 + c["Skv"])
+    q = rng.standard_normal((c["B"], c["Sq"], c["Hq"], c["D"])) * 0.5
+    k = rng.standard_normal((c["B"], c["Skv"], c["Hkv"], c["D"])) * 0.5
+    v = k if c["kv_is_k"] else \
+        rng.standard_normal((c["B"], c["Skv"], c["Hkv"], c["D"])) * 0.5
+    return [torch.from_numpy(x.astype(np.float32)).to(dev, torch.float16)
+            for x in (q, k, v)]
+
+
+def heads_first(x):
+    """(B, S, H, D) -> contiguous (B * H, S, D)."""
+    B, S, H, D = x.shape
+    return x.transpose(1, 2).reshape(B * H, S, D).contiguous()
+
+
+def flash_key(c: dict, mode: str):
+    return (mode, c["B"] * c["Hq"], c["Sq"], c["Skv"], c["D"],
+            c["Hq"] // c["Hkv"], c["causal"])
+
+
+def flash_bytes_flops(c: dict, mode: str):
+    """``attn_cost`` with k and v read once at Hkv heads (not at every
+    query head) and the LUT's 64 KiB in lut mode, and its flops scaled to
+    the (query, key) pairs the mask leaves (kpos <= qpos when causal)."""
+    from repro_torch.kernels.autotune import attn_cost
+
+    B, Sq, Skv, D = c["B"], c["Sq"], c["Skv"], c["D"]
+    flops, nbytes = attn_cost(B * c["Hq"], Sq, Skv, D)
+    nbytes += (attn_cost(B * c["Hkv"], 0, Skv, D)[1]
+               - attn_cost(B * c["Hq"], 0, Skv, D)[1])
+    if mode == "lut":
+        nbytes += 32768 * 2
+    pairs = (sum(min(i + 1, Skv) for i in range(Sq)) if c["causal"]
+             else Sq * Skv)
+    return nbytes, flops * pairs / (Sq * Skv)
+
+
+def flash_phase(results: list, dev: str = "cuda") -> dict:
+    """Drive ``ops.flash_attention`` once per (case, exp mode) with the
+    counters reset just before and read just after; then hold each output
+    against the plain version on the same tensors (2e-3) and f32 attention
+    (2e-2), and time the full-width cases.  Returns the phase's run
+    {"counts", "by_shape"}."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import lut_softmax_attention as LA
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.autotune import pick_block
+
+    t0 = time.perf_counter()
+    inputs = {c["name"]: flash_inputs(c, dev) for c in FLASH_CASES}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    outs = {(c["name"], mode): ops.flash_attention(
+        *inputs[c["name"]], causal=c["causal"], exp_mode=mode)
+        for c in FLASH_CASES for mode in FLASH_MODES}
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    by_shape = dict(LA.lut_softmax_attention.shapes)
+    want = {flash_key(c, m): 1 for c in FLASH_CASES for m in FLASH_MODES}
+    if counts["lut_softmax_attention"] != len(outs) or by_shape != want:
+        raise AssertionError(f"flash: launches {counts} {by_shape}, "
+                             f"expected one per case and mode")
+    lut = ops.exp_lut(dev)
+    for c in FLASH_CASES:
+        q, k, v = (heads_first(x) for x in inputs[c["name"]])
+        G = c["Hq"] // c["Hkv"]
+        bkv = pick_block(c["Skv"], 128)
+        o32 = ref.attention_f32_ref(q, k.repeat_interleave(G, 0),
+                                    v.repeat_interleave(G, 0),
+                                    causal=c["causal"])
+        for mode in FLASH_MODES:
+            got = heads_first(outs[c["name"], mode])
+            plain = lambda: LA.plain_lut_softmax_attention(
+                q, k, v, lut, causal=c["causal"], bkv=bkv, exp_mode=mode,
+                kv_group=G)
+            want_o = plain()
+            torch.cuda.synchronize()
+            err = check_close(f"flash/{c['name']}/{mode}", got, want_o, 2e-3)
+            err32 = check_close(f"flash/{c['name']}/{mode} vs f32", got,
+                                o32, 2e-2)
+            shape = (f"B{c['B']} Sq{c['Sq']} Skv{c['Skv']} Hq{c['Hq']} "
+                     f"Hkv{c['Hkv']} D{c['D']} "
+                     f"{'causal' if c['causal'] else 'full'} bkv{bkv}")
+            extra = dict(shape=shape, dtype="float16", max_err_vs_f32=err32,
+                         jax_recorded_err_vs_f32=JAX_VS_F32.get(
+                             (c["name"], mode)))
+            if not c["timed"]:
+                emit("kernel_check", name=f"lut_softmax_attention/{mode}/"
+                     f"{c['name']}", max_abs_err=err, **extra)
+                continue
+            run = lambda: LA.lut_softmax_attention(
+                q, k, v, lut, causal=c["causal"], bkv=bkv, exp_mode=mode,
+                kv_group=G)
+            nbytes, flops = flash_bytes_flops(c, mode)
+            b_ms, b_by = bound(nbytes, flops, "float16")
+            qs, ks, vs = (x.transpose(1, 2).contiguous()
+                          for x in inputs[c["name"]])
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=c["causal"], enable_gqa=True))
+            row = {"name": f"lut_softmax_attention/{mode}/{c['name']}",
+                   "route": "cuda", "source": FLASH_SRC,
+                   "replaces": REPLACES["lut_softmax_attention"],
+                   "max_abs_err": err, "ms": time_ms(run),
+                   "call_ms": call_ms(run),
+                   "plain_ms": time_ms(plain, iters=10), "bound_ms": b_ms,
+                   "bound_by": b_by, "library_ms": lib_ms,
+                   "counter": ("by_shape", flash_key(c, mode)),
+                   "path": "flash"}
+            emit("kernel", **row, **extra)
+            results.append(row)
+    emit("flash", launches=counts["lut_softmax_attention"],
+         cases=len(FLASH_CASES), modes=list(FLASH_MODES),
+         seconds=time.perf_counter() - t0)
+    return {"counts": counts, "by_shape": by_shape}
+
+
+Q4_PROJECTIONS = (("attn", ("wq", "wk", "wv", "wo")), ("ffn", ("gate", "up")))
+
+
+def quantize_phase(results: list, dev: str = "cuda",
+                   n_layers: int = 28) -> dict:
+    """Drive ``ops.tile_quantize_op`` over every Q4 projection of
+    full-width qwen2.5-1.5b (the f32 weights ``serve`` quantizes, seed 0),
+    with the counters reset just before and read just after; then hold
+    each leaf against the plain version (exactly), the offline quantizer
+    (>= 99.9% of 4-bit codes) and, through K3 at M = 8, against
+    ``dequant_matmul_ref``; time one weight of each shape.  Returns the
+    phase's run {"counts", "by_shape"}."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import tile_quantize as TK
+    from repro_torch.kernels.autotune import quantize_cost
+    from repro_torch.models import transformer as TR
+    from repro_torch.quant import tile_quant as TQ
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen2.5-1.5b"), n_layers=n_layers)
+    params = TR.init_params(cfg, seed=0, device=dev)
+    weights = [layer[grp][name]["w"] for layer in params["layers"]
+               for grp, names in Q4_PROJECTIONS for name in names]
+    del params
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    leaves = [ops.tile_quantize_op(w) for w in weights]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    by_shape = dict(TK.tile_quantize.shapes)
+    want = {}
+    for w in weights:
+        want[tuple(w.shape)] = want.get(tuple(w.shape), 0) + 1
+    if counts["tile_quantize"] != len(weights) or by_shape != want:
+        raise AssertionError(f"quantize: launches {counts} {by_shape}, "
+                             f"expected {want}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    agree, k3_err = 1.0, 0.0
+    for w, leaf in zip(weights, leaves):
+        codes, scales = TK.plain_tile_quantize(w)
+        if not (torch.equal(leaf["codes"], codes)
+                and torch.equal(leaf["scales"], scales)):
+            raise AssertionError(f"tile_quantize {tuple(w.shape)}: not "
+                                 f"bit-identical to the plain version")
+        off = TQ.quantize(w, scheme="tile")
+        agree = min(agree, float((TQ.unpack_int4(off["codes"])
+                                  == TQ.unpack_int4(leaf["codes"])).float()
+                                 .mean()))
+        x = torch.randn((8, w.shape[0]), generator=gen, device=dev).to(
+            torch.bfloat16)
+        k3_err = max(k3_err, check_close(
+            f"tile_quantize {tuple(w.shape)} -> K3",
+            ops.lut_dequant_matmul(x, leaf),
+            ref.dequant_matmul_ref(x, leaf["codes"], leaf["scales"],
+                                   leaf["codebook"]), 2e-2, 2e-2 + 2.0 ** -7))
+    if agree < 0.999:
+        raise AssertionError(f"tile_quantize: {agree:.5f} of 4-bit codes "
+                             f"equal to the offline quantizer's (< 0.999)")
+    for K, N in sorted(by_shape):
+        w = next(w for w in weights if tuple(w.shape) == (K, N))
+        flops, nbytes = quantize_cost(K, N)  # f32 weight in, codes out
+        b_ms, b_by = bound(nbytes + K * N // 16 * 2, flops, "float32")
+        run = lambda: TK.tile_quantize(w)
+        row = {"name": f"tile_quantize/K{K}xN{N}", "route": "cuda",
+               "source": QUANT_SRC, "replaces": REPLACES["tile_quantize"],
+               "max_abs_err": 0.0, "ms": time_ms(run),
+               "call_ms": call_ms(run),
+               "plain_ms": time_ms(lambda: TK.plain_tile_quantize(w),
+                                   iters=10),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+               "counter": ("by_shape", (K, N)), "path": "quantize"}
+        emit("kernel", **row, dtype=str(w.dtype).removeprefix("torch."))
+        results.append(row)
+    emit("quantize", launches=counts["tile_quantize"], by_shape={
+        "x".join(map(str, k)): n for k, n in sorted(by_shape.items())},
+        min_code_agreement_vs_offline=agree, k3_max_abs_err=k3_err,
+        seconds=time.perf_counter() - t0)
+    return {"counts": counts, "by_shape": by_shape}
+
+
+# ---------------------------------------------------------------------------
 # small-input reference: GPU kernels vs CPU plain versions
 # ---------------------------------------------------------------------------
 
@@ -588,7 +851,9 @@ def serve_runs(n_layers: int = 28) -> dict:
         # slots) and per prefill (M = batch x padded prompt); two KV
         # dequant launches (K and V) per partial prefill
         want = {attn: n_layers * s["steps"],
-                "lut_dequant_kv": 2 * partial}
+                "lut_dequant_kv": 2 * partial,
+                # K5 and K6 are off the served path, as in the JAX package
+                "lut_softmax_attention": 0, "tile_quantize": 0}
         for k, n in GEMM_KN:
             want[(8, k, n)] = 2 * n_layers * s["steps"]
             for b, width, _ in prefills:
@@ -671,6 +936,33 @@ def profile_decode() -> None:
                       for e in top])
 
 
+def kernel_rows(results: list, runs: dict, phases: dict) -> list:
+    """The rows of the kernels line.  Each row's launches come from the
+    serve run of its own path; K3 runs on every path: its rows carry the
+    count of the first path that launched the row's (M, K, N), and every
+    path's count beside it; K4 rows carry their path's count at the row's
+    (mode, R); K5 and K6 rows their phase's count at the row's shape.  A
+    row whose kernel its path or phase never launched fails."""
+    kernels = []
+    for row in results:
+        row = dict(row)
+        key = row.pop("counter")
+        if isinstance(key, tuple) and key[0] == "by_shape":
+            row["launches"] = phases[row["path"]]["by_shape"].get(key[1], 0)
+        elif isinstance(key, tuple) and key[0] == "kv":
+            row["launches"] = runs[row["path"]]["kv_shapes"].get(key[1:], 0)
+        elif isinstance(key, tuple):
+            row["launches"] = runs[row["path"]]["shapes"].get(key, 0)
+            row["launches_by_path"] = {p: r["shapes"].get(key, 0)
+                                       for p, r in runs.items()}
+        else:
+            row["launches"] = runs[row["path"]]["counts"][key]
+        if row["launches"] <= 0:
+            raise AssertionError(f"{row['name']}: not launched on its path")
+        kernels.append(row)
+    return kernels
+
+
 def main() -> int:
     import torch
 
@@ -706,27 +998,11 @@ def main() -> int:
             kv_r.setdefault(key, path)
     check_gemm_kernel(results, gemm_m)
     check_dequant_kv_kernel(results, kv_r)
+    phases = {"flash": flash_phase(results),
+              "quantize": quantize_phase(results)}
     profile_decode()
 
-    # each row's launches come from the serve run of its own path; K3 runs
-    # on every path: its rows carry the count of the first path above that
-    # launched the row's (M, K, N), and every path's count beside it; K4
-    # rows carry their path's count at the row's (mode, R)
-    kernels = []
-    for row in results:
-        row = dict(row)
-        key = row.pop("counter")
-        if isinstance(key, tuple) and key[0] == "kv":
-            row["launches"] = runs[row["path"]]["kv_shapes"].get(key[1:], 0)
-        elif isinstance(key, tuple):
-            row["launches"] = runs[row["path"]]["shapes"].get(key, 0)
-            row["launches_by_path"] = {p: r["shapes"].get(key, 0)
-                                       for p, r in runs.items()}
-        else:
-            row["launches"] = runs[row["path"]]["counts"][key]
-        if row["launches"] <= 0:
-            raise AssertionError(f"{row['name']}: not launched on its path")
-        kernels.append(row)
+    kernels = kernel_rows(results, runs, phases)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

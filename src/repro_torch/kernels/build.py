@@ -16,7 +16,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("paged_attention", "lut_dequant_gemm", "lut_dequant_kv")
+SOURCES = ("paged_attention", "lut_dequant_gemm", "lut_dequant_kv",
+           "lut_softmax_attention", "tile_quantize")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

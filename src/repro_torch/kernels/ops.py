@@ -1,8 +1,9 @@
 """Dispatch layer between the model and the kernels.
 
-The wrappers in ``paged_attention``, ``lut_dequant_gemm`` and
-``lut_dequant_kv`` launch the CUDA kernels for CUDA tensors and run their
-plain versions for CPU tensors; this module adapts the model's layouts to them, holds the
+The wrappers in ``paged_attention``, ``lut_dequant_gemm``,
+``lut_dequant_kv``, ``lut_softmax_attention`` and ``tile_quantize`` launch
+the CUDA kernels for CUDA tensors and run their plain versions for CPU
+tensors; this module adapts the model's layouts to them, holds the
 per-device constant tables (the exp LUT, the q4 codebook) and reads or
 resets the wrappers' launch counters.
 """
@@ -10,10 +11,13 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import autotune as _autotune
 from repro_torch.kernels import lut_dequant_gemm as _gemm
 from repro_torch.kernels import lut_dequant_kv as _dequant_kv
+from repro_torch.kernels import lut_softmax_attention as _attn
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import ref
+from repro_torch.kernels import tile_quantize as _tq
 from repro_torch.quant import tile_quant as TQ
 
 # wrapper name -> wrapper, for the launch counters
@@ -22,7 +26,12 @@ KERNELS = {
     "quant_paged_attention": _paged.quant_paged_attention,
     "lut_dequant_gemm": _gemm.lut_dequant_gemm,
     "lut_dequant_kv": _dequant_kv.lut_dequant_kv,
+    "lut_softmax_attention": _attn.lut_softmax_attention,
+    "tile_quantize": _tq.tile_quantize,
 }
+# wrappers that also count their launches by shape
+_BY_SHAPE = (_gemm.lut_dequant_gemm, _dequant_kv.lut_dequant_kv,
+             _attn.lut_softmax_attention, _tq.tile_quantize)
 
 _TABLES: dict = {}
 
@@ -63,8 +72,8 @@ def gemm_launches_by_shape() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
-    _gemm.lut_dequant_gemm.shapes.clear()
-    _dequant_kv.lut_dequant_kv.shapes.clear()
+    for fn in _BY_SHAPE:
+        fn.shapes.clear()
 
 
 def lut_dequant_matmul(x: torch.Tensor, qw: dict, *,
@@ -123,3 +132,39 @@ def paged_flash_decode(q, k_pool, v_pool, table, cache_len, *,
                                    window=window, softcap=softcap,
                                    exp_mode=exp_mode)
     return o.reshape(B, 1, Hq, D)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, exp_mode: str = "lut",
+                    bq: int = 128, bkv: int = 128):
+    """LUT-softmax FlashAttention (Alg. 1) with GQA.
+
+    q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D), any fp dtype, computed in
+    fp16.  Blocks are ``pick_block(Sq, bq)`` and ``pick_block(Skv, bkv)``;
+    query head h reads KV head h // (Hq // Hkv).  Returns (B, Sq, Hq, D)
+    in q.dtype."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+
+    def heads_first(x, S, H):
+        return x.transpose(1, 2).reshape(B * H, S, D).to(
+            torch.float16).contiguous()
+
+    o = _attn.lut_softmax_attention(
+        heads_first(q, Sq, Hq), heads_first(k, Skv, Hkv),
+        heads_first(v, Skv, Hkv), exp_lut(q.device), causal=causal,
+        bq=_autotune.pick_block(Sq, bq), bkv=_autotune.pick_block(Skv, bkv),
+        exp_mode=exp_mode, kv_group=Hq // Hkv)
+    return o.reshape(B, Hq, Sq, D).transpose(1, 2).to(q.dtype)
+
+
+def tile_quantize_op(w: torch.Tensor, *, group_size: int = 32) -> dict:
+    """Quantize a (K, N) weight on its device through K6 -> the Q4 leaf
+    {"codes", "scales", "codebook": q4_0} that ``lut_dequant_matmul``
+    takes."""
+    from repro_torch.quant.codebooks import get_codebook
+
+    codes, scales = _tq.tile_quantize(w, group_size=group_size)
+    return {"codes": codes, "scales": scales,
+            "codebook": get_codebook("q4_0", device=w.device)}

@@ -173,3 +173,118 @@ def lut_paged_decode_attention_ref(q, k_pool, v_pool, table, lengths, lut,
         acc = acc * corr + pv
         m = m_new
     return (acc / torch.clamp_min(l, 1e-30)).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# K5: LUT-softmax FlashAttention (paper Alg. 1, exp modes lut/poly/exact)
+# ---------------------------------------------------------------------------
+
+FLASH_EXP_MODES = ("lut", "poly", "exact")
+
+
+def poly_exp(x16: torch.Tensor) -> torch.Tensor:
+    """The fp16 polynomial exp2 baseline of Fig. 14: exp(x) = 2^(x log2 e),
+    split into integer k (f32 floor) and fraction f, 2^f by a degree-4
+    Taylor polynomial in f * ln 2 (Horner, one f32 rounding per multiply
+    and add), scaled by 2^k, cast to fp16."""
+    y = x16.float() * 1.4426950408889634
+    k = torch.floor(y)
+    t = (y - k) * 0.6931471805599453
+    p = 1.0 + t * (1.0 + t * (0.5 + t * (1.0 / 6.0 + t * (1.0 / 24.0))))
+    return torch.ldexp(p, k.to(torch.int32)).to(torch.float16)
+
+
+def _exp16(x16: torch.Tensor, lut, exp_mode: str) -> torch.Tensor:
+    if exp_mode == "lut":
+        return lut_exp(lut, x16)
+    if exp_mode == "poly":
+        return poly_exp(x16)
+    return torch.exp(x16.float()).to(torch.float16)
+
+
+def lut_flash_attention_ref(q, k, v, lut=None, *, causal: bool = True,
+                            bkv: int = 128, exp_mode: str = "lut",
+                            kv_group: int = 1):
+    """The fp16 FlashAttention recurrence of Alg. 1 over KV blocks of
+    ``bkv`` rows, with the Pallas kernel's rounding points: S = f32 q.k^T
+    times the f32 scale, ``NEG_CAP`` where kpos > qpos (top-left aligned)
+    when causal, S rounded to fp16, m kept in fp16, x = s16 - m_new an fp16
+    subtraction, p and the correction factor from ``exp_mode`` (the exp
+    LUT, :func:`poly_exp` or f32 exp, each rounded to fp16), l and acc in
+    f32, out = acc / max(l, 1e-30) in fp16.  The fp16 m is rounded once
+    per block, so ``bkv`` is part of the function.
+
+    q: (BH, Sq, D) fp16; k, v: (BH // kv_group, Skv, D) fp16 (query head
+    bh reads KV head bh // kv_group).  Returns (BH, Sq, D) fp16."""
+    if exp_mode not in FLASH_EXP_MODES:
+        raise ValueError(f"exp_mode must be one of {FLASH_EXP_MODES}, "
+                         f"got {exp_mode!r}")
+    if exp_mode == "lut":
+        lut = (build_exp_lut() if lut is None else lut).to(q.device)
+    if kv_group > 1:
+        k = k.repeat_interleave(kv_group, dim=0)
+        v = v.repeat_interleave(kv_group, dim=0)
+    BH, Sq, D = q.shape
+    Skv = k.shape[1]
+    bkv = min(bkv, Skv)
+    if Skv % bkv:
+        raise ValueError(f"bkv={bkv} does not divide Skv={Skv}")
+    scale = 1.0 / math.sqrt(D)
+    qf = q.float()
+    m = torch.full((BH, Sq, 1), NEG_CAP, dtype=torch.float16,
+                   device=q.device)
+    l = torch.zeros((BH, Sq, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((BH, Sq, D), dtype=torch.float32, device=q.device)
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    for j in range(Skv // bkv):
+        kj = k[:, j * bkv:(j + 1) * bkv].float()
+        vj = v[:, j * bkv:(j + 1) * bkv].to(torch.float16).float()
+        s = torch.bmm(qf, kj.transpose(1, 2)) * scale
+        if causal:
+            kpos = j * bkv + torch.arange(bkv, device=q.device)[None]
+            s = torch.where(kpos <= qpos, s, NEG_CAP)
+        s16 = s.to(torch.float16)
+        m_new = torch.maximum(m, s16.amax(dim=-1, keepdim=True))
+        p = _exp16(s16 - m_new, lut, exp_mode)
+        corr = _exp16(m - m_new, lut, exp_mode).float()
+        l = l * corr + p.float().sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.bmm(p.float(), vj)
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)).to(torch.float16)
+
+
+def attention_f32_ref(q, k, v, *, causal: bool = True):
+    """Conventional f32 softmax attention over (BH, S, D) (the yardstick of
+    Fig. 14 and Table 5); causal masks kpos > qpos."""
+    D = q.shape[-1]
+    s = torch.bmm(q.float(), k.float().transpose(1, 2)) / math.sqrt(D)
+    if causal:
+        Sq, Skv = q.shape[1], k.shape[1]
+        mask = (torch.arange(Skv, device=q.device)[None]
+                <= torch.arange(Sq, device=q.device)[:, None])
+        s = torch.where(mask, s, float("-inf"))
+    return torch.bmm(torch.softmax(s, dim=-1), v.float())
+
+
+# ---------------------------------------------------------------------------
+# K6: on-device tile quantization
+# ---------------------------------------------------------------------------
+
+
+def tile_quantize_ref(w: torch.Tensor, *, group_size: int = 32):
+    """The tile-quantize kernel's arithmetic (not the offline quantizer's
+    nearest-code search): w widened to f32; per (2, group_size // 2)
+    group, scale = absmax / 8 in f32, stored as fp16; codes =
+    clip(round_half_even(w / max(scale, 1e-8)), -8, 7) + 8, dividing by
+    the f32 scale, packed two per byte along N (low nibble = even column).
+
+    w: (K, N) -> (codes (K, N // 2) uint8, scales (K // 2, N // gc) fp16)."""
+    K, N = w.shape
+    gr, gc = 2, group_size // 2
+    if K % gr or N % gc or N % 2:
+        raise ValueError(f"(2, {gc}) groups do not tile a {(K, N)} weight")
+    g = w.float().reshape(K // gr, gr, N // gc, gc)
+    scales = g.abs().amax(dim=(1, 3)) / 8.0
+    sc = torch.clamp_min(scales, 1e-8)[:, None, :, None]
+    q = (torch.round(g / sc).clamp(-8, 7) + 8).reshape(K, N).to(torch.uint8)
+    return q[:, 0::2] | (q[:, 1::2] << 4), scales.to(torch.float16)

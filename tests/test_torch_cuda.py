@@ -12,8 +12,10 @@ import torch
 
 from repro_torch.kernels import lut_dequant_gemm as G
 from repro_torch.kernels import lut_dequant_kv as K4
+from repro_torch.kernels import lut_softmax_attention as K5
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels import tile_quantize as K6
 from repro_torch.quant import tile_quant as TQ
 from repro_torch.serving.kv_quant import kv_tile_geometry, quantize_kv
 
@@ -137,3 +139,79 @@ def test_cuda_lut_dequant_kv_rejects_short_rows(cuda):
     q = _to(quantize_kv(torch.randn((4, 1, 8)), mode="q4", gr=1, gc=8), cuda)
     with pytest.raises(ValueError, match="16-byte"):
         ops.lut_dequant_gather(q)
+
+
+# (BH, Sq, Skv, D, kv_group, causal, bkv): an odd KV block (79, prime S)
+# with one KV head for four query heads, KV blocks of 64 and 128 over one
+# input, a causal Sq < Skv, a KV block of 256 and head_dim 32
+FLASH_SHAPES = [(4, 79, 79, 128, 4, True, 79), (6, 256, 256, 64, 3, True, 64),
+                (6, 256, 256, 64, 3, True, 128), (4, 48, 192, 32, 2, True, 96),
+                (8, 40, 512, 64, 1, False, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exp_mode", ["lut", "poly", "exact"])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_cuda_lut_softmax_attention_matches_plain(cuda, exp_mode, shape):
+    BH, Sq, Skv, D, G_, causal, bkv = shape
+    gen = torch.Generator().manual_seed(BH * Skv + bkv)
+    q = (torch.randn((BH, Sq, D), generator=gen) * 0.5).half()
+    k, v = ((torch.randn((BH // G_, Skv, D), generator=gen) * 0.5).half()
+            for _ in range(2))
+    kw = dict(causal=causal, bq=Sq, bkv=bkv, exp_mode=exp_mode, kv_group=G_)
+    want = K5.lut_softmax_attention(q, k, v, ops.exp_lut(), **kw)
+    before = K5.lut_softmax_attention.launches
+    got = K5.lut_softmax_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                                   ops.exp_lut(cuda), **kw)
+    assert K5.lut_softmax_attention.launches == before + 1
+    torch.cuda.synchronize()
+    # the JAX package's kernel-vs-oracle bar
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=2e-3,
+                               rtol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_lut_softmax_attention_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros((2, 64, 48), dtype=torch.float16, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        K5.lut_softmax_attention(q, q, q, ops.exp_lut(cuda), exp_mode="lut")
+    q = torch.zeros((2, 512, 64), dtype=torch.float16, device=cuda)
+    with pytest.raises(ValueError, match="at most 256"):
+        K5.lut_softmax_attention(q, q, q, None, bkv=512, exp_mode="exact")
+    with pytest.raises(ValueError, match="exp LUT"):
+        K5.lut_softmax_attention(q, q, q, None, exp_mode="lut")
+    with pytest.raises(ValueError, match="fp16"):
+        K5.lut_softmax_attention(q.float(), q, q, None, exp_mode="exact")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("kn", [(128, 256), (1536, 256), (96, 8960)])
+def test_cuda_tile_quantize_matches_plain_bitwise(cuda, dtype, kn):
+    """Random weights with an all-zero group and a group on exact half
+    steps of its scale (round half to even): bit for bit."""
+    K, N = kn
+    w = torch.randn((K, N), generator=torch.Generator().manual_seed(K)) * 0.2
+    w[0:2, 0:16] = 0.0
+    ties = torch.tensor([0.5, 1.5, 2.5, 3.5, -0.5, -1.5, -2.5, -6.5, 6.5,
+                         7.5, -7.5, 8.0, -8.0, 4.5, -4.5, 5.5])
+    w[2, 0:16], w[3, 0:16] = ties, -ties
+    w = w.to(dtype)
+    want = K6.tile_quantize(w)
+    before = K6.tile_quantize.launches
+    got = K6.tile_quantize(w.to(cuda))
+    assert K6.tile_quantize.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    leaf = ops.tile_quantize_op(w.to(cuda))
+    assert TQ.infer_scheme(leaf) == "tile" and leaf["codebook"].is_cuda
+
+
+@pytest.mark.gpu
+def test_cuda_tile_quantize_rejects_what_it_cannot_take(cuda):
+    with pytest.raises(ValueError, match="group_size 32"):
+        K6.tile_quantize(torch.zeros((4, 64), device=cuda), group_size=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        K6.tile_quantize(torch.zeros((64, 4), device=cuda).t())
