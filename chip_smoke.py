@@ -16,8 +16,11 @@ Phases, one JSON line each:
    result to bf16; KV dequant: exactly equal), and timed with CUDA events
    beside its roofline bound, its plain version and one PyTorch library
    call computing the same function (timed only; none for the KV dequant).
-   Paged attention runs here at the decode shapes; the GEMM and the KV
-   dequant run after phase 5, at the shapes its runs launched them with;
+   Paged attention runs here at the decode shapes, at its own split count,
+   also timed at 1 and 4 splits and with 17 times the rows at 1 and 2; the GEMM and the KV dequant run after
+   phase 5, at the shapes its runs launched them with, the GEMM and its
+   library call timed hot (one weight back to back) and cold (a rotation
+   over weight copies past the 50 MB L2), with the GEMM's regime;
 4. ``reference``: a small quantized model run on the GPU and on the CPU
    (plain versions) from the same weights and tokens; prefill,
    teacher-forced decode and partial-prefill (cached prefix) logits must
@@ -45,7 +48,8 @@ Phases, one JSON line each:
    exactly equal to the plain version, >= 99.9% of 4-bit codes equal to
    the offline quantizer's, and each leaf through K3 at M = 8 against
    ``dequant_matmul_ref``; each projection shape timed;
-8. ``profile``: where a decode step's time goes, under ``torch.profiler``.
+8. ``profile``: where a decode step's time goes, under ``torch.profiler``,
+   with K3's and K1/K2's device ms per decode step.
 
 Phases 6 and 7 reset the counters, drive their entry point once per case,
 and read the counts before any comparison or timing launches.  Then a
@@ -137,6 +141,28 @@ def call_ms(fn, iters: int = 50) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+L2_BYTES = 50e6  # the H100's L2 cache
+
+
+def copies_past_l2(nbytes: float) -> int:
+    """How many distinct copies of an operand of ``nbytes`` a rotation
+    needs so that each call finds its copy out of L2 (twice the L2)."""
+    return max(2, math.ceil(2 * L2_BYTES / nbytes))
+
+
+def time_ms_cold(fns) -> float:
+    """Device milliseconds per call of a rotation over ``fns``, each on
+    its own copy of the operands, so no call finds its weight in L2 (the
+    served decode step streams 462 MB of Q4 codes per step)."""
+    i = [0]
+
+    def run():
+        fns[i[0] % len(fns)]()
+        i[0] += 1
+
+    return time_ms(run, iters=max(50, 2 * len(fns)))
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -283,6 +309,21 @@ def check_paged_kernels(results: list) -> None:
                 run = lambda: wrapper(q, kp, vp, table, lens, lut, *extra,
                                       exp_mode=mode)
                 ms, wall = time_ms(run), call_ms(run)
+                # the same function at other split counts, through the
+                # wrappers' private launch (timed only): 1 and 4 splits at
+                # this shape, and 1 and 2 at 17 times its rows (B Hkv =
+                # 272, where the wrappers take 2 splits)
+                cb = extra[0] if extra else None
+
+                def at(s, args=(q, kp, vp, table, lens)):
+                    return time_ms(lambda: PA._launch(
+                        *args, lut, cb, window=0, softcap=0.0,
+                        exp_mode=mode, n_splits=s))
+
+                big = (q.repeat(17, 1, 1, 1), kp, vp, table.repeat(17, 1),
+                       lens.repeat(17))
+                by_splits = {"B8": {s: at(s) for s in (1, 4)},
+                             "B136": {s: at(s, big) for s in (1, 2)}}
                 plain_ms = time_ms(lambda: plain(q, kp, vp, table, lens,
                                                  lut, 0), iters=10)
                 nbytes, flops = paged_bytes_flops(q, kp, table, lens, 0)
@@ -293,7 +334,8 @@ def check_paged_kernels(results: list) -> None:
                        "plain_ms": plain_ms, "bound_ms": b_ms,
                        "bound_by": b_by,
                        "library_ms": sdpa_library(q, kp, vp, table, lens),
-                       "counter": name,
+                       "splits": PA.splits(*q.shape[:2], table.shape[1]),
+                       "ms_by_splits": by_splits, "counter": name,
                        "path": f"{'none' if kind == 'fp' else kind}/{mode}"}
                 emit("kernel", **row, shape="B8 Hkv2 G6 D128 bs16 W16",
                      dtype="bfloat16")
@@ -338,18 +380,36 @@ def check_gemm_kernel(results: list, gemm_m: dict) -> None:
                  max_abs_err=max(errs.values()))
             continue
         w_lib = TQ.dequantize(qw, dtype=torch.bfloat16)
+        # hot: one weight back to back (in L2); cold: a rotation over
+        # distinct copies of the weight, past the L2, as the served step
+        # reads it
         ms = time_ms(lambda: G.lut_dequant_gemm(*args))
         wall = call_ms(lambda: G.lut_dequant_gemm(*args))
+        wbytes = qw["codes"].numel() + qw["scales"].numel() * 2
+        rot = [(qw["codes"].clone(), qw["scales"].clone())
+               for _ in range(copies_past_l2(wbytes))]
+        ms_cold = time_ms_cold([
+            (lambda c=c, sc=sc: G.lut_dequant_gemm(x, c, sc, qw["codebook"]))
+            for c, sc in rot])
+        del rot
         plain_ms = time_ms(lambda: G.plain_lut_dequant_gemm(*args), iters=10)
         lib_ms = time_ms(lambda: torch.matmul(x, w_lib))
-        nbytes = (x.numel() * 2 + qw["codes"].numel()
-                  + qw["scales"].numel() * 2 + 64 + M * N * 2)
+        rot = [w_lib.clone() for _ in range(copies_past_l2(
+            w_lib.numel() * 2))]
+        lib_cold = time_ms_cold([(lambda w=w: torch.matmul(x, w))
+                                 for w in rot])
+        del rot
+        nbytes = x.numel() * 2 + wbytes + 64 + M * N * 2
         b_ms, b_by = bound(nbytes, 2.0 * M * K * N, "bfloat16")
+        pl = G.plan(M, K, N, torch.bfloat16)
         row = {"name": f"lut_dequant_gemm/M{M}xK{K}xN{N}", "route": "cuda",
                "source": GEMM_SRC, "replaces": REPLACES["lut_dequant_gemm"],
-               "max_abs_err": max(errs.values()), "ms": ms, "call_ms": wall,
-               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": lib_ms, "counter": (M, K, N),
+               "max_abs_err": max(errs.values()), "ms": ms,
+               "ms_cold": ms_cold, "call_ms": wall, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+               "library_ms_cold": lib_cold, "regime": pl.regime,
+               "plan": {"mt": pl.mt, "wk": pl.wk, "kz": pl.kz},
+               "counter": (M, K, N),
                "path": gemm_m[M]}
         emit("kernel", **row, dtype="bfloat16")
         results.append(row)
@@ -926,7 +986,20 @@ def profile_decode() -> None:
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     cpu_ops = sum(e.count for e in events if e.device_type.name == "CPU"
                   and e.key.startswith("aten::"))
+
+    def by_kernel(*names):
+        """(device ms per step, launches) of the kernels named ``names``:
+        the run's one prefill included, as in the serve's step counts."""
+        ev = [e for e in kernels if any(n in e.key for n in names)]
+        return (sum(e.self_device_time_total for e in ev) / 1e3 / steps,
+                sum(e.count for e in ev))
+
+    k3_ms, k3_n = by_kernel("tc_gemm_kernel", "tile_gemm_kernel",
+                            "fma_gemm_kernel")
+    k2_ms, k2_n = by_kernel("paged_attention_kernel", "fold_kernel")
     emit("profile", kv_quant="q8", impl="exact", steps=steps,
+         k3_device_ms_per_step=k3_ms, k3_kernel_launches=k3_n,
+         k2_device_ms_per_step=k2_ms, k2_kernel_launches=k2_n,
          wall_ms_per_step=wall * 1e3 / steps,
          device_ms_per_step=device_ms / steps,
          device_busy_share=device_ms / (wall * 1e3),

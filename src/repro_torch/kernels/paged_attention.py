@@ -7,8 +7,10 @@ block pool through the row's block table, with per-row lengths, a sliding
 window (<= 0 = none), tanh softcap, and an exact f32 or fp16 LUT online
 softmax.  For CPU tensors the wrappers run the plain versions
 (:func:`plain_paged_attention`, :func:`plain_lut_paged_attention`); for
-CUDA tensors they launch the kernel or raise.  ``launches`` on each
-wrapper counts kernel launches.
+CUDA tensors they launch the kernel or raise.  The kernel splits each
+row's blocks over :func:`splits` thread blocks (split-KV: score, attend
+and fold launches; one fused launch when the table has one block).  ``launches`` on each
+wrapper counts calls of the kernel.
 """
 from __future__ import annotations
 
@@ -26,6 +28,25 @@ EXP_MODES = ("exact", "lut")
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _LOADERS = {"fp": 0, "q8": 1, "q4": 2}
 _MAX_BLOCK_BYTES = 4 * 128 * 16  # kMaxChunks x kThreads 16-byte chunks
+_MAX_SCORES = 4 * 128            # G x bs: kMaxScores x kThreads
+_MAX_SPLITS = 16
+_TARGET_BLOCKS = 2 * 132         # two thread blocks per H100 SM
+
+
+def splits(B: int, Hkv: int, W: int) -> int:
+    """The split count of a call, from (B, Hkv, W) alone: enough splits of
+    the table for ~2 thread blocks per SM and at least 2 (on the H100 the
+    split launches beat the fused one-split launch also where B Hkv alone
+    fills the SMs), at most one per table block."""
+    want = max(2, -(-_TARGET_BLOCKS // max(1, B * Hkv)))
+    return max(1, min(W, want, _MAX_SPLITS))
+
+
+def _log2(n: int, what: str) -> int:
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"the kernel takes power-of-two scale tiles, got "
+                         f"{what} = {n}")
+    return n.bit_length() - 1
 
 
 def _lib() -> ctypes.CDLL:
@@ -33,7 +54,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.paged_attention_launch
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([I, I, I] + [P] * 10 + [I] * 11
+        fn.argtypes = ([I, I, I] + [P] * 11 + [I] * 12
                        + [ctypes.c_float, ctypes.c_float, P])
         fn.restype = ctypes.c_int
     return lib
@@ -70,8 +91,10 @@ def _expect(t: torch.Tensor, name: str, dtype, shape, device):
 
 
 def _launch(q, k_pool, v_pool, table, lengths, lut, codebook, *, window,
-            softcap, exp_mode):
-    """Validate the operands and launch the kernel on the current stream."""
+            softcap, exp_mode, n_splits=None):
+    """Validate the operands and launch the kernel on the current stream,
+    over :func:`splits` splits unless ``n_splits`` says otherwise (the
+    function is the same for every split count; tests and timing only)."""
     dev = q.device
     if q.dtype not in _DTYPES or q.dim() != 4 or not q.is_contiguous():
         raise ValueError(f"q must be a contiguous (B, Hkv, G, D) tensor of "
@@ -89,6 +112,11 @@ def _launch(q, k_pool, v_pool, table, lengths, lut, codebook, *, window,
         cdt = torch.int8 if mode == "q8" else torch.uint8
         dc = D if mode == "q8" else D // 2
         Hs, Ds = Hkv // gr, D // gc
+        if gc < (16 if mode == "q8" else 32) // 4:
+            raise ValueError(f"the kernel reads at most 4 scale groups per "
+                             f"16-byte chunk of {mode} codes: scale groups "
+                             f"of {gc} head dims are not taken (q8 needs "
+                             f">= 4, q4 >= 8)")
         for name, pool in (("k_pool", k_pool), ("v_pool", v_pool)):
             _expect(pool["codes"], f"{name} codes", cdt, (nb, bs, Hkv, dc),
                     dev)
@@ -104,6 +132,10 @@ def _launch(q, k_pool, v_pool, table, lengths, lut, codebook, *, window,
         k, v, ks, vs = k_pool, v_pool, None, None
         gr = gc = Hs = Ds = 1
         loader = _LOADERS["fp"]
+    if D % 8 or D > 256 or G * bs > _MAX_SCORES:
+        raise ValueError(f"the kernel takes head_dim a multiple of 8 up to "
+                         f"256 and G x block_size <= {_MAX_SCORES}, got "
+                         f"head_dim {D}, G {G}, block_size {bs}")
     row = k.shape[-1] * k.element_size()
     if row % 16 or k.data_ptr() % 16 or v.data_ptr() % 16 or \
             bs * row > _MAX_BLOCK_BYTES:
@@ -125,13 +157,23 @@ def _launch(q, k_pool, v_pool, table, lengths, lut, codebook, *, window,
     out = torch.empty_like(q)
     if B == 0:
         return out
+    S = splits(B, Hkv, W) if n_splits is None else int(n_splits)
+    if not 1 <= S <= min(max(1, W), _MAX_SPLITS):
+        raise ValueError(f"splits must lie in [1, min(W, {_MAX_SPLITS})], "
+                         f"got {S}")
+    scratch = None
+    if S > 1:  # scores, block maxima, split acc, l_s, C_s
+        scratch = torch.empty(B * Hkv * G * (W * bs + W + S * D + 2 * S),
+                              dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _lib().paged_attention_launch(
             _DTYPES[q.dtype], loader, int(exp_mode == "lut"), q.data_ptr(),
             k.data_ptr(), v.data_ptr(), ks, vs, table.data_ptr(),
-            lengths.data_ptr(), lut_ptr, cb_ptr, out.data_ptr(), B, Hkv, G,
-            D, bs, W, Hs, Ds, gr, gc, int(window), 1.0 / math.sqrt(D),
-            float(softcap), torch.cuda.current_stream(dev).cuda_stream)
+            lengths.data_ptr(), lut_ptr, cb_ptr, out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), B, Hkv, G, D,
+            bs, W, Hs, Ds, _log2(gr, "gr"), _log2(gc, "gc"), int(window), S,
+            1.0 / math.sqrt(D), float(softcap),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed with CUDA "
                            f"error {err}")

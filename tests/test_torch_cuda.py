@@ -215,3 +215,178 @@ def test_cuda_tile_quantize_rejects_what_it_cannot_take(cuda):
         K6.tile_quantize(torch.zeros((4, 64), device=cuda), group_size=64)
     with pytest.raises(ValueError, match="contiguous"):
         K6.tile_quantize(torch.zeros((64, 4), device=cuda).t())
+
+
+# K3 at the edges of its two tensor-core tilings (M <= 32: small, then
+# large) and of the n8 row tiles, with N = 96 leaving a partial 64-column
+# warp tile; f32 x runs the CUDA-core kernel
+GEMM_M = [1, 8, 16, 17, 32, 33, 79, 133, 300]
+GEMM_TOL = {torch.float32: (1e-3, 1e-3),
+            # the bf16 / f16 bars plus one rounding step of the output
+            torch.bfloat16: (2e-2, 2e-2 + 2.0 ** -7),
+            torch.float16: (2e-2, 2e-2 + 2.0 ** -10)}
+
+
+def _gemm_args(M, K, N, dtype, scheme, cuda, codebook="q4_0"):
+    gen = torch.Generator().manual_seed(M * 7 + N)
+    qw = _to(TQ.quantize(torch.randn((K, N), generator=gen) * 0.1,
+                         scheme=scheme, codebook=codebook), cuda)
+    x = torch.randn((M, K), generator=gen).to(dtype).to(cuda)
+    return x, qw["codes"], qw["scales"], qw["codebook"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["tile", "common"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("M", GEMM_M)
+@pytest.mark.parametrize("kn", [(512, 96), (1536, 256)])
+def test_cuda_lut_dequant_gemm_regimes_match_plain(cuda, scheme, dtype, M,
+                                                   kn):
+    K, N = kn
+    args = _gemm_args(M, K, N, dtype, scheme, cuda)
+    pl = G.plan(M, K, N, dtype, scheme)
+    if dtype == torch.float32:
+        assert pl.regime == "cuda_core"
+    elif M > G.SMALL_M:
+        assert pl.regime == "large_m"
+    else:
+        assert pl.regime == "small_m"
+        assert pl.mt == (1 if M <= 8 else 2 if M <= 16 else 4)
+    before = G.lut_dequant_gemm.launches
+    got = G.lut_dequant_gemm(*args, scheme=scheme)
+    assert G.lut_dequant_gemm.launches == before + 1
+    want = G.plain_lut_dequant_gemm(*args)
+    torch.cuda.synchronize()
+    atol, rtol = GEMM_TOL[dtype]
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= atol + rtol * want.float().abs()).all()), \
+        float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codebook", ["nf4", "iq4_nl"])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("M", [8, 33])
+def test_cuda_lut_dequant_gemm_other_codebooks_match_plain(cuda, codebook,
+                                                          dtype, M):
+    """Codebooks that are not an integer grid c + cb0 take the kernel's
+    shared-memory lookup instead of its packed integer dequantization."""
+    args = _gemm_args(M, 512, 96, dtype, "tile", cuda, codebook)
+    got = G.lut_dequant_gemm(*args)
+    want = G.plain_lut_dequant_gemm(*args)
+    torch.cuda.synchronize()
+    atol, rtol = GEMM_TOL[dtype]
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= atol + rtol * want.float().abs()).all()), \
+        float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [8, 17, 133])
+def test_cuda_lut_dequant_gemm_is_deterministic(cuda, M):
+    """Split-K sums in warp order, no atomics: two calls, the same bits."""
+    args = _gemm_args(M, 1536, 256, torch.bfloat16, "tile", cuda)
+    a = G.lut_dequant_gemm(*args)
+    b = G.lut_dequant_gemm(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def _split_case(kind, dtype, cuda, seed=3):
+    """qwen2.5-1.5b's decode geometry (Hkv 2, G 6, D 128, 16-token blocks)
+    on a 7-block table: a zero-length row, a full row, and ragged rows
+    whose live blocks start mid-table under a window of 48."""
+    B, Hkv, G_, D, bs, W = 4, 2, 6, 128, 16, 7
+    nb = 1 + B * W
+    gen = torch.Generator().manual_seed(seed)
+    q = (torch.randn((B, Hkv, G_, D), generator=gen) * 0.5).to(dtype)
+    pools = []
+    for _ in range(2):
+        fp = torch.randn((nb, bs, Hkv, D), generator=gen) * 0.5
+        gr, gc = kv_tile_geometry(Hkv, D)
+        pools.append(fp.to(dtype) if kind == "fp"
+                     else quantize_kv(fp, mode=kind, gr=gr, gc=gc))
+    lens = torch.tensor([0, W * bs, 50, 97], dtype=torch.int32)
+    table = torch.zeros((B, W), dtype=torch.int32)
+    perm = torch.randperm(nb - 1, generator=gen) + 1
+    used = 0
+    for b in range(B):
+        n = -(-int(lens[b]) // bs)
+        table[b, :n] = perm[used:used + n]
+        used += n
+    return [_to(a, cuda) for a in (q, pools[0], pools[1], table, lens)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["fp", "q8", "q4"])
+@pytest.mark.parametrize("exp_mode", ["exact", "lut"])
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("n_splits", [1, 2, 4, 7, None])
+def test_cuda_paged_attention_splits_match_plain(cuda, kind, exp_mode,
+                                                 window, n_splits):
+    """Split-KV at 1, 2, 4 and 7 (one block each) splits and the wrapper's
+    own count, over W = 7 blocks (not divisible by 2 or 4): the same
+    function as the sequential plain version, at its bars."""
+    q, kp, vp, table, lens = _split_case(kind, torch.float32, cuda)
+    lut = ops.exp_lut(cuda) if exp_mode == "lut" else None
+    wrapper = PA.paged_attention if kind == "fp" else PA.quant_paged_attention
+    cb = None if kind == "fp" else ops.q4_codebook(cuda)
+    if n_splits is None:
+        before = wrapper.launches
+        got = wrapper(q, kp, vp, table, lens, lut,
+                      *(() if cb is None else (cb,)), window=window,
+                      exp_mode=exp_mode)
+        assert wrapper.launches == before + 1
+    else:  # the wrappers take their count from the shapes alone
+        got = PA._launch(q, kp, vp, table, lens, lut, cb, window=window,
+                         softcap=0.0, exp_mode=exp_mode, n_splits=n_splits)
+    want = PA._plain(q, kp, vp, table, lens, lut, window, 0.0, exp_mode)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=ATOL[exp_mode], rtol=0)
+    assert float(got[0].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["fp", "q8", "q4"])
+@pytest.mark.parametrize("exp_mode", ["exact", "lut"])
+def test_cuda_paged_attention_is_deterministic(cuda, kind, exp_mode):
+    """The fold runs in split order, with no atomics: two calls, the same
+    bits (bf16, the served type)."""
+    args = _split_case(kind, torch.bfloat16, cuda)
+    lut = ops.exp_lut(cuda) if exp_mode == "lut" else None
+    wrapper = PA.paged_attention if kind == "fp" else PA.quant_paged_attention
+    extra = () if kind == "fp" else (ops.q4_codebook(cuda),)
+    assert PA.splits(*args[0].shape[:2], args[3].shape[1]) == 7
+    a = wrapper(*args, lut, *extra, exp_mode=exp_mode)
+    b = wrapper(*args, lut, *extra, exp_mode=exp_mode)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["q8", "q4"])
+def test_cuda_quant_paged_attention_small_scale_groups(cuda, kind):
+    """A pool of QuantKVPool(group_size=8) (scale groups of 4 head dims):
+    q8 (at most 4 groups per 16-byte chunk) matches the plain version,
+    q4 (8 groups per chunk) is refused rather than read wrongly."""
+    gen = torch.Generator().manual_seed(5)
+    B, Hkv, G_, D, bs, W = 2, 2, 3, 32, 4, 3
+    q = torch.randn((B, Hkv, G_, D), generator=gen) * 0.5
+    gr, gc = kv_tile_geometry(Hkv, D, group_size=8)
+    assert gc == 4
+    kp, vp = (quantize_kv(torch.randn((1 + B * W, bs, Hkv, D),
+                                      generator=gen) * 0.5,
+                          mode=kind, gr=gr, gc=gc) for _ in range(2))
+    table = torch.arange(1, 1 + B * W, dtype=torch.int32).reshape(B, W)
+    lens = torch.tensor([W * bs, 5], dtype=torch.int32)
+    args = [_to(a, cuda) for a in (q, kp, vp, table, lens)]
+    cb = ops.q4_codebook(cuda)
+    if kind == "q4":
+        with pytest.raises(ValueError, match="scale groups"):
+            PA.quant_paged_attention(*args, None, cb)
+        return
+    got = PA.quant_paged_attention(*args, None, cb)
+    want = PA._plain(*args, None, 0, 0.0, "exact")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=ATOL["exact"], rtol=0)
