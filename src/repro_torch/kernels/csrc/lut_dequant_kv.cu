@@ -15,17 +15,16 @@
 // of codes it reads, so the output write dominates; at the partial-prefill
 // shapes (R = 1,792 to 12,544 slabs of 2 x 128) it moves 2 to 16 MB.
 //
-// Design: one thread per 16-byte chunk of codes, so any R is taken (the
-// Pallas kernel's row block had to divide R).  A thread loads its chunk
-// with one vector load, unpacks 16 (q8) or 32 (q4) values (the 16-entry
-// codebook sits in shared memory), reads each scale once per gc-run of
-// dims, and writes its outputs with float4 stores.  Neighbouring threads
-// take neighbouring chunks, so the loads coalesce; the stores do not: each
-// thread writes 64 (q8) or 128 (q4) contiguous bytes, so one warp-wide
-// float4 store touches 32 segments 64 or 128 bytes apart, and on the H100
-// the kernel reaches only a fifth of the byte rate (PERF.md).  Giving each
-// thread one float4 of output (4 q8 or 2 q4 code bytes in) would make
-// neighbouring threads' stores adjacent.
+// Design: one float4 of output per thread and step, so that neighbouring
+// lanes store neighbouring 16 bytes and a warp's store covers 512
+// contiguous bytes; its codes are 4 bytes (q8) or 2 bytes (q4) read with
+// one load, also contiguous across the warp.  The flat output is cut into
+// float4s whatever R is (the Pallas kernel's row block had to divide R);
+// a thread takes kVec of them, kThreads apart, and starts all its loads
+// before its stores.  When the scale group gc is a multiple of 4, a float4
+// needs one scale; otherwise each element reads its own.  The 16-entry
+// codebook sits in shared memory.  Index arithmetic is 32-bit unless the
+// output has 2^32 float4s or more.
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -33,52 +32,75 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kVec = 2;  // float4s per thread
 
-template <bool Q4>
-__global__ void __launch_bounds__(kThreads)
-    lut_dequant_kv_kernel(const uint8_t* __restrict__ codes,
-                          const __half* __restrict__ scales,
-                          const float* __restrict__ codebook,
-                          float* __restrict__ out, long long n_chunks,
-                          int chunks_per_slab, int H, int D, int Hs, int Ds,
-                          int gr, int gc) {
-  constexpr int kOut = Q4 ? 32 : 16;  // values per 16-byte chunk
+struct Args {
+  const uint8_t* codes;    // (R, H, Dc)
+  const __half* scales;    // (R, Hs, Ds)
+  const float* codebook;   // (16,), q4 only
+  float* out;              // (R, H, D), D4 = D / 4 float4s per row
+  unsigned long long n_vec;  // R * H * D4
+  int D4, H, Hs, Ds, gr, gc;
+};
+
+template <bool Q4, bool SCALE4, typename Idx>
+__global__ void __launch_bounds__(kThreads) lut_dequant_kv_kernel(Args a) {
   __shared__ float cb[16];
   if constexpr (Q4) {
-    if (threadIdx.x < 16) cb[threadIdx.x] = codebook[threadIdx.x];
+    if (threadIdx.x < 16) cb[threadIdx.x] = a.codebook[threadIdx.x];
     __syncthreads();
   }
-  const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (c >= n_chunks) return;
-  const long long slab = c / chunks_per_slab;  // r * H + h
-  const int d0 = (int)(c - slab * chunks_per_slab) * kOut;
-  const long long r = slab / H;
-  const int h = (int)(slab - r * H);
-
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(codes) + c);
-  const uint8_t* b = reinterpret_cast<const uint8_t*>(&raw);
-  float v[kOut];
+  const Idx n_vec = (Idx)a.n_vec, D4 = (Idx)a.D4, H = (Idx)a.H;
+  const Idx base = (Idx)blockIdx.x * (kThreads * kVec) + threadIdx.x;
+  uint32_t raw[kVec];
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    if constexpr (Q4) {
-      v[2 * j] = cb[b[j] & 0xF];
-      v[2 * j + 1] = cb[b[j] >> 4];
-    } else {
-      v[j] = (float)(int8_t)b[j];
+  for (int u = 0; u < kVec; ++u) {
+    const Idx e = base + (Idx)u * kThreads;
+    if (e < n_vec)
+      raw[u] = Q4 ? (uint32_t)__ldg(
+                        reinterpret_cast<const unsigned short*>(a.codes) + e)
+                  : __ldg(reinterpret_cast<const unsigned int*>(a.codes) + e);
+  }
+#pragma unroll
+  for (int u = 0; u < kVec; ++u) {
+    const Idx e = base + (Idx)u * kThreads;
+    if (e >= n_vec) continue;
+    const Idx slab = e / D4;  // r * H + h
+    const int d0 = (int)(e - slab * D4) * 4;
+    const Idx r = slab / H;
+    const int h = (int)(slab - r * H);
+    const __half* srow =
+        a.scales + ((size_t)r * a.Hs + h / a.gr) * (size_t)a.Ds;
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (Q4)
+        v[i] = cb[(raw[u] >> (4 * i)) & 0xF];
+      else
+        v[i] = (float)(int8_t)(raw[u] >> (8 * i));
     }
-  }
-  const __half* srow = scales + (r * Hs + h / gr) * (long long)Ds;
-  float s = 0.f;
+    if constexpr (SCALE4) {
+      const float sc = __half2float(__ldg(srow + d0 / a.gc));
 #pragma unroll
-  for (int j = 0; j < kOut; ++j) {
-    const int d = d0 + j;
-    if (j == 0 || d % gc == 0) s = __half2float(__ldg(srow + d / gc));
-    v[j] = __fmul_rn(v[j], s);
-  }
-  float4* o = reinterpret_cast<float4*>(out + slab * (long long)D + d0);
+      for (int i = 0; i < 4; ++i) v[i] = __fmul_rn(v[i], sc);
+    } else {
 #pragma unroll
-  for (int j = 0; j < kOut / 4; ++j)
-    o[j] = make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+      for (int i = 0; i < 4; ++i)
+        v[i] = __fmul_rn(v[i], __half2float(__ldg(srow + (d0 + i) / a.gc)));
+    }
+    reinterpret_cast<float4*>(a.out)[e] = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+template <bool Q4, bool SCALE4>
+void launch(const Args& a, cudaStream_t s) {
+  const unsigned long long per_block = kThreads * kVec;
+  const unsigned blocks = (unsigned)((a.n_vec + per_block - 1) / per_block);
+  if (a.n_vec + per_block < (1ull << 32))
+    lut_dequant_kv_kernel<Q4, SCALE4, uint32_t><<<blocks, kThreads, 0, s>>>(a);
+  else
+    lut_dequant_kv_kernel<Q4, SCALE4, unsigned long long>
+        <<<blocks, kThreads, 0, s>>>(a);
 }
 
 }  // namespace
@@ -91,21 +113,17 @@ extern "C" int lut_dequant_kv_launch(int q4, const void* codes,
                                      const void* scales, const void* codebook,
                                      void* out, int R, int H, int Dc, int Hs,
                                      int Ds, int gr, int gc, void* stream) {
-  const int chunks_per_slab = Dc / 16;
-  const long long n_chunks = (long long)R * H * chunks_per_slab;
-  const int D = q4 ? 2 * Dc : Dc;
-  if (n_chunks == 0) return 0;
-  const long long blocks = (n_chunks + kThreads - 1) / kThreads;
+  const int D4 = (q4 ? 2 * Dc : Dc) / 4;
+  const Args a{static_cast<const uint8_t*>(codes),
+               static_cast<const __half*>(scales),
+               static_cast<const float*>(codebook), static_cast<float*>(out),
+               (unsigned long long)R * H * D4, D4, H, Hs, Ds, gr, gc};
+  if (a.n_vec == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint8_t* c = static_cast<const uint8_t*>(codes);
-  const __half* sc = static_cast<const __half*>(scales);
-  const float* cb = static_cast<const float*>(codebook);
-  float* o = static_cast<float*>(out);
+  const bool s4 = gc % 4 == 0;
   if (q4)
-    lut_dequant_kv_kernel<true><<<(unsigned)blocks, kThreads, 0, s>>>(
-        c, sc, cb, o, n_chunks, chunks_per_slab, H, D, Hs, Ds, gr, gc);
+    s4 ? launch<true, true>(a, s) : launch<true, false>(a, s);
   else
-    lut_dequant_kv_kernel<false><<<(unsigned)blocks, kThreads, 0, s>>>(
-        c, sc, cb, o, n_chunks, chunks_per_slab, H, D, Hs, Ds, gr, gc);
+    s4 ? launch<false, true>(a, s) : launch<false, false>(a, s);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-// LUT-softmax FlashAttention (paper Alg. 1) for Hopper (sm_90a).
+// LUT-softmax FlashAttention (paper Alg. 1) for Hopper (sm_90a), on the
+// tensor cores.
 //
 // Replaces the JAX package's Pallas TPU kernel
 //   K5  src/repro/kernels/lut_softmax_attention.py  lut_softmax_attention
@@ -11,40 +12,62 @@
 //
 // Rounding points, copied from the Pallas kernel: S = f32 q.k^T times the
 // f32 scale, NEG_CAP (-30000) where masked, rounded to fp16
-// (__float2half_rn); m kept in fp16; x = s16 - m_new by __hsub; p and the
+// (__float2half_rn); m kept in fp16; x = s16 - m_new by __hsub2; p and the
 // correction factor e^(m_prev - m_new) from the exp mode, rounded to fp16;
-// l and acc in f32 (l * corr + sum p, acc * corr + p.v, each multiply and
-// add rounded on its own); out = acc / max(l, 1e-30).  m is rounded once
-// per KV block, so the block length bkv is part of the function: it is a
-// runtime argument (any divisor of Skv up to kMaxBkv, odd ones too), and
-// each row's scores over the whole block are formed before its max is
-// taken.  The exact mode uses expf (not __expf), and the file is built
-// without fast math.  The poly mode uses floorf and ldexpf and writes its
-// Horner steps with __fmul_rn / __fadd_rn so that nvcc cannot contract
-// them into FMAs: it is bit-identical to the plain version's f32 steps.
-// Products of two fp16 values are exact in f32, so the FMAs of q.k and
-// p.v round only their sums; those sums run in another order than the
-// plain version's, which can move an fp16-rounded score by one step.
+// l and acc in f32 (l * corr and acc * corr rounded on their own, then
+// sum p and p.v accumulated onto them); out = acc / max(l, 1e-30).  m is
+// rounded once per KV block, so the block length bkv is part of the
+// function: it is a runtime argument (any divisor of Skv up to kMaxBkv,
+// odd ones too), and a warp forms its rows' scores over the whole
+// block before it takes their max.  The exact mode uses expf (not __expf),
+// and the file is built without fast math.  The poly mode uses floorf,
+// writes its Horner steps with __fmul_rn / __fadd_rn so that nvcc cannot
+// contract them into FMAs, and scales by 2^k with one exact multiply
+// (what ldexpf gives here).  q.k, p.v and sum p run on the tensor cores
+// (mma.sync.m16n8k16, fp16 in, f32 accumulate): the products of two fp16
+// values are exact, only the order of the sums differs from the plain
+// version's, which can move an fp16-rounded score by one step.
 //
 // What bounds it on the H100: operations.  At qwen2.5-1.5b's prefill
 // geometry (12 query heads, 2 KV heads, head_dim 128, 2048 tokens) the
-// causal product is ~13 GFLOP against ~15 MB of q, k, v and out, far
-// above the card's ~295 flops-per-byte ridge.  This first version does
-// its products in f32 on the CUDA cores (no tensor cores), so it runs far
-// from the fp16 tensor-core bound; mma.sync / wgmma are the fix.
+// causal product is ~13 GFLOP against ~15 MB of q, k, v and out, far above
+// the card's ~295 flops-per-byte ridge.  In practice the CUDA cores'
+// instruction stream bounds it: beside the tensor-core products every
+// score takes a scale, an fp16 rounding, an fp16 subtract and an exp (a
+// table gather, ~17 f32 steps in poly, MUFU in exact), and with 2 blocks
+// of 4 warps per SM (~250 registers a thread) little of their latency is
+// hidden (PERF.md: variant builds and SASS counts).
 //
-// Design: one thread block of 128 threads per (bh, 16-row query tile),
-// a loop over the KV blocks of bkv rows.  Per block: K and V are staged
-// in shared memory with 16-byte loads (K rows padded to an odd word
-// stride so that threads reading different rows at one dim hit different
-// banks); each thread forms one block column's scores for the 16 rows
-// (q is held in shared memory as f32 and read by broadcast); 8 lanes per
-// row take the fp16 max, p, the row sum and the correction factor; then
-// each thread accumulates p.v for its (rows, dim) share in registers.
-// A causal tile stops at the last KV block it can see: a block that the
-// mask covers entirely gives p = exp(-30000 - m) = 0 and corr = exp(0) =
-// 1 in every mode, so skipping it changes nothing.  The 64 KiB LUT stays
-// in global memory and is read through the read-only cache (__ldg).
+// Design: one thread block of 4 warps per (bh, 64 query rows), each warp
+// owning 16 rows; causal tiles are launched heaviest (last rows) first.
+// A loop over the KV blocks of bkv rows; per block, K and V go into
+// shared memory with cp.async, rows XOR-swizzled by 16-byte chunk so that
+// ldmatrix reads 8 rows without bank conflicts: K of the next block loads
+// while this block's p.v runs, V of the next block while its scores are
+// formed.  bkv is padded to the mma's k step of 16 (79 -> 80): the padded
+// rows of K and V are zero-filled once, the padded columns enter neither
+// the max nor l and give p = 0 exactly.  Per block a warp:
+//   1. forms S = q.k^T (q in registers as A fragments, K through ldmatrix)
+//      four k steps (eight independent mma chains) at a time, scales and
+//      rounds each score to fp16 at once and keeps the block's S as packed
+//      half2 (<= 64 registers for bkv <= 256);
+//   2. takes each row's fp16 max over the block (__hmax2, quad shuffles),
+//      m_new, p = exp(s - m_new) in place of S and the correction factor,
+//      and scales its f32 acc by it (skipped when every corr is 1);
+//   3. accumulates p.v and the row sums l on the tensor cores: the m16n8 C
+//      fragment of S is laid out as the m16k16 A fragment of P, so p feeds
+//      the mma without a shuffle, V comes through ldmatrix.trans, and l is
+//      p times a column of ones.
+// A block whose every k step the warp takes, with no mask and no padding,
+// runs a copy of steps 1-3 without the per-step guards.  A causal warp
+// stops at the last KV block, and within it at the last 16-column step,
+// that its rows can see: a step that the mask covers for every row of the
+// warp gives p = exp(-30000 - m) = 0 and corr = exp(0) = 1 in every mode,
+// so skipping it changes nothing (every row's first block holds kpos 0,
+// so m has left NEG_CAP by then).  The 64 KiB LUT is read either through
+// the read-only cache (__ldg) or, staged once per block, from shared
+// memory (lut_smem), which leaves room for one block per SM: the wrapper
+// stages it when the grid fits in one such wave.
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -53,18 +76,21 @@
 namespace {
 
 constexpr float kNegCap = -30000.0f;  // finite fp16 "-inf"; LUT gives 0
-constexpr int kThreads = 128;
-constexpr int kRows = 16;      // query rows per thread block
-constexpr int kMaxBkv = 256;   // longest KV block the shared memory takes
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;  // query rows per thread block
+constexpr int kMaxBkv = 256;        // longest KV block (S in registers)
+constexpr int kLutBytes = 32768 * 2;
 
 enum ExpMode { kLut = 0, kPoly = 1, kExact = 2 };
 
 // exp of an fp16 value <= 0, rounded to fp16
-template <int MODE>
+template <int MODE, bool LUT_SMEM>
 __device__ __forceinline__ __half exp16(__half x,
                                         const unsigned short* __restrict__ lut) {
   if constexpr (MODE == kLut) {
-    return __ushort_as_half(__ldg(lut + (__half_as_ushort(x) & 0x7FFF)));
+    const int i = __half_as_ushort(x) & 0x7FFF;
+    return __ushort_as_half(LUT_SMEM ? lut[i] : __ldg(lut + i));
   } else if constexpr (MODE == kPoly) {
     // constants rounded from double to float, as the reference rounds them
     const float y = __fmul_rn(__half2float(x), (float)1.4426950408889634);
@@ -74,11 +100,82 @@ __device__ __forceinline__ __half exp16(__half x,
     p = __fadd_rn(0.5f, __fmul_rn(t, p));
     p = __fadd_rn(1.0f, __fmul_rn(t, p));
     p = __fadd_rn(1.0f, __fmul_rn(t, p));
-    return __float2half_rn(ldexpf(p, (int)k));
+    // ldexpf(p, k) for p in [1, 2) and k <= 0: for k >= -126, 2^k is a
+    // normal f32 and p * 2^k is exact; below, ldexpf gives less than
+    // 2^-125, which rounds to fp16 0 as this does
+    if (k < -126.f) return __float2half_rn(0.f);
+    return __float2half_rn(
+        __fmul_rn(p, __int_as_float(((int)k + 127) << 23)));
   } else {
     return __float2half_rn(expf(__half2float(x)));
   }
 }
+
+__device__ __forceinline__ uint32_t as_u32(__half2 h) {
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+__device__ __forceinline__ __half2 as_h2(uint32_t u) {
+  return *reinterpret_cast<__half2*>(&u);
+}
+
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Byte offset of 16-byte chunk c of row r in a K or V tile of D fp16 per
+// row.  XOR swizzle: the 8 rows one ldmatrix reads at one chunk fall in 8
+// distinct 16-byte bank groups (rows of 128 or 256 bytes: c ^ (r & 7);
+// 64-byte rows, two to a 128-byte line: c ^ ((r >> 1) & 3)).
+template <int D>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  constexpr int kCh = D / 8;
+  const int s = kCh >= 8 ? (c ^ (r & 7)) : (c ^ ((r >> 1) & 3));
+  return (uint32_t)((r * kCh + s) * 16);
+}
+
+// rows [0, rows) of a K or V block into its shared tile, one 16-byte
+// cp.async per chunk
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t tile, const __half* g,
+                                          int rows, int tid) {
+  constexpr int kCh = D / 8;
+  for (int i = tid; i < rows * kCh; i += kThreads) {
+    const int r = i / kCh, c = i % kCh;
+    cp_async16(tile + swz<D>(r, c), g + (size_t)r * D + c * 8);
+  }
+}
+
+// a compile-time flag passed to the block's generic lambdas
+template <bool B> struct Full { static constexpr bool value = B; };
 
 struct Params {
   const __half* q;            // (BH, Sq, D)
@@ -90,197 +187,335 @@ struct Params {
   float scale;
 };
 
-// Shared-memory layout in 32-bit words (host and device agree on it).
-template <int D>
-struct Smem {
-  static constexpr int kKw = D / 2 + 1;  // K row stride: odd, conflict-free
-  static constexpr int kVw = D / 2;      // V row stride: 16-byte rows
-  __host__ __device__ static int v_off() { return 0; }
-  __host__ __device__ static int q_off(int bkv) { return bkv * kVw; }
-  __host__ __device__ static int k_off(int bkv) {
-    return q_off(bkv) + kRows * D;
-  }
-  __host__ __device__ static int s_off(int bkv) {
-    return k_off(bkv) + bkv * kKw;
-  }
-  __host__ __device__ static int corr_off(int bkv) {
-    return s_off(bkv) + kRows * (bkv + 1);
-  }
-  __host__ __device__ static int l_off(int bkv) { return corr_off(bkv) + kRows; }
-  __host__ __device__ static int words(int bkv) { return l_off(bkv) + kRows; }
-};
+__host__ __device__ inline int tile_bytes(int bkv, int D) {
+  return ((bkv + 15) / 16) * 16 * D * 2;  // bkv padded to 16 rows
+}
 
-template <int D, int MODE>
+// NKT: the most 16-column steps of a KV block (bkv <= 16 * NKT), which
+// sizes the warp's register copy of S.
+template <int D, int NKT, int MODE, bool LUT_SMEM>
 __global__ void __launch_bounds__(kThreads)
     lut_softmax_attention_kernel(Params p) {
-  using L = Smem<D>;
-  constexpr int kChunks = D / 8;                // 16-byte chunks per row
-  constexpr int kRpt = kRows * D / kThreads;   // p.v rows per thread
-  extern __shared__ __align__(16) uint32_t smem[];
+  constexpr int kCh = D / 8;   // 16-byte chunks per K / V row
+  constexpr int kKd = D / 16;  // k steps of q.k^T
+  constexpr int kNd = D / 8;   // n8 tiles of p.v
+  extern __shared__ __align__(128) unsigned char smem[];
   const int bkv = p.bkv;
-  const int sw = bkv + 1;  // score row stride
-  uint32_t* vs = smem + L::v_off();
-  float* qs = reinterpret_cast<float*>(smem + L::q_off(bkv));
-  uint32_t* ks = smem + L::k_off(bkv);
-  float* ss = reinterpret_cast<float*>(smem + L::s_off(bkv));
-  float* corr_s = reinterpret_cast<float*>(smem + L::corr_off(bkv));
-  float* l_s = reinterpret_cast<float*>(smem + L::l_off(bkv));
+  const int nkt = (bkv + 15) >> 4;
+  const int tb = tile_bytes(bkv, D);
+  const uint32_t ks = (uint32_t)__cvta_generic_to_shared(smem);
+  const uint32_t vs = ks + tb;
+  const unsigned short* lut =
+      LUT_SMEM ? reinterpret_cast<const unsigned short*>(smem + 2 * tb)
+               : p.lut;
 
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kRows;
-  const int rows = min(kRows, p.Sq - q0);
-  const __half* qg = p.q + ((size_t)bh * p.Sq + q0) * D;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // mma fragment row / column pair
+  const int bh = blockIdx.x;
+  const int qt = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * kRows;
+  const int r0 = q0 + warp * 16;                // the warp's first row
+  const int last = min(r0 + 15, p.Sq - 1);      // < r0: the warp has none
+  const int cta_last = min(q0 + kRows, p.Sq) - 1;
   const size_t kv_base = (size_t)(bh / p.G) * p.Skv * D;
+  const __half* kg = p.k + kv_base;
+  const __half* vg = p.v + kv_base;
 
-  for (int i = tid; i < kRows * D; i += kThreads)
-    qs[i] = i / D < rows ? __half2float(qg[i]) : 0.f;
+  int nblk = p.Skv / bkv;
+  if (p.causal) nblk = min(nblk, cta_last / bkv + 1);
 
-  int nkv = p.Skv / bkv;
-  if (p.causal) nkv = min(nkv, (q0 + rows - 1) / bkv + 1);
+  // the padded rows of K and V are zero (0 x stale bits could be NaN);
+  // the copies below never write them
+  for (int i = tid; i < (nkt * 16 - bkv) * kCh; i += kThreads) {
+    const int r = bkv + i / kCh, c = i % kCh;
+    *reinterpret_cast<uint4*>(smem + swz<D>(r, c)) = make_uint4(0, 0, 0, 0);
+    *reinterpret_cast<uint4*>(smem + tb + swz<D>(r, c)) =
+        make_uint4(0, 0, 0, 0);
+  }
+  if constexpr (LUT_SMEM) {
+    for (int i = tid; i < kLutBytes / 16; i += kThreads)
+      cp_async16(ks + 2 * tb + i * 16, p.lut + i * 8);
+  }
+  load_tile<D>(ks, kg, bkv, tid);
+  cp_commit();
+  load_tile<D>(vs, vg, bkv, tid);
+  cp_commit();
 
-  // softmax state: 8 lanes per row, each holding the row's m and l
-  const int sr = tid >> 3, sl = tid & 7;
-  float m_row = kNegCap;  // an fp16 value
-  float l_row = 0.f;
-  // p.v share: one dim, kRpt consecutive rows
-  const int pd = tid % D, pr0 = (tid / D) * kRpt;
-  float acc[kRpt];
+  // q as m16k16 A fragments: rows g and g + 8, columns 2t.. and 2t + 8..
+  uint32_t qa[kKd][4];
+  {
+    const __half* qg = p.q + (size_t)bh * p.Sq * D;
+    const int ra = r0 + g, rb = ra + 8;
 #pragma unroll
-  for (int i = 0; i < kRpt; ++i) acc[i] = 0.f;
-
-  for (int j = 0; j < nkv; ++j) {
-    const int kv0 = j * bkv;
-    __syncthreads();  // the previous block's readers are done
-    const uint4* kg = reinterpret_cast<const uint4*>(p.k + kv_base +
-                                                     (size_t)kv0 * D);
-    const uint4* vg = reinterpret_cast<const uint4*>(p.v + kv_base +
-                                                     (size_t)kv0 * D);
-    for (int i = tid; i < bkv * kChunks; i += kThreads) {
-      const int c = i / kChunks, w = (i - c * kChunks) * 4;
-      const uint4 a = __ldg(kg + i);
-      const uint4 b = __ldg(vg + i);
-      uint32_t* kd = ks + c * L::kKw + w;
-      kd[0] = a.x; kd[1] = a.y; kd[2] = a.z; kd[3] = a.w;
-      *reinterpret_cast<uint4*>(vs + c * L::kVw + w) = b;
-    }
-    __syncthreads();
-
-    // scores of block column c for the tile's rows, rounded to fp16
-    for (int c = tid; c < bkv; c += kThreads) {
-      float s[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-      const uint32_t* kr = ks + c * L::kKw;
-#pragma unroll 4
-      for (int w = 0; w < D / 2; ++w) {
-        const float2 kf = __half22float2(
-            *reinterpret_cast<const __half2*>(kr + w));
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float2 qf = *reinterpret_cast<const float2*>(qs + r * D + 2 * w);
-          s[r] = fmaf(qf.x, kf.x, s[r]);
-          s[r] = fmaf(qf.y, kf.y, s[r]);
-        }
-      }
-      const int kpos = kv0 + c;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        float v = __fmul_rn(s[r], p.scale);
-        if (p.causal && kpos > q0 + r) v = kNegCap;
-        ss[r * sw + c] = __half2float(__float2half_rn(v));
-      }
-    }
-    __syncthreads();
-
-    // fp16 max, p and the correction factor; l in f32
-    {
-      float* srow = ss + sr * sw;
-      float mx = kNegCap;  // m_prev >= NEG_CAP, so this start changes nothing
-      for (int c = sl; c < bkv; c += 8) mx = fmaxf(mx, srow[c]);
-#pragma unroll
-      for (int o = 4; o; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const __half m_new = __float2half_rn(fmaxf(m_row, mx));
-      float sum = 0.f;
-      for (int c = sl; c < bkv; c += 8) {
-        const float pv = __half2float(
-            exp16<MODE>(__hsub(__float2half_rn(srow[c]), m_new), p.lut));
-        srow[c] = pv;
-        sum += pv;
-      }
-#pragma unroll
-      for (int o = 4; o; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      const float corr = __half2float(
-          exp16<MODE>(__hsub(__float2half_rn(m_row), m_new), p.lut));
-      l_row = __fadd_rn(__fmul_rn(l_row, corr), sum);
-      m_row = __half2float(m_new);
-      if (sl == 0) corr_s[sr] = corr;
-    }
-    __syncthreads();
-
-    // acc = acc * corr + p.v over the block
-    {
-      const __half* vh = reinterpret_cast<const __half*>(vs);
-      float pv[kRpt];
-#pragma unroll
-      for (int i = 0; i < kRpt; ++i) pv[i] = 0.f;
-      for (int c = 0; c < bkv; ++c) {
-        const float vv = __half2float(vh[c * D + pd]);
-#pragma unroll
-        for (int i = 0; i < kRpt; ++i)
-          pv[i] = fmaf(ss[(pr0 + i) * sw + c], vv, pv[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < kRpt; ++i)
-        acc[i] = __fadd_rn(__fmul_rn(acc[i], corr_s[pr0 + i]), pv[i]);
+    for (int kk = 0; kk < kKd; ++kk) {
+      const int c = kk * 16 + 2 * t;
+      auto ld = [&](int r, int col) -> uint32_t {
+        return r < p.Sq ? __ldg(reinterpret_cast<const unsigned int*>(
+                              qg + (size_t)r * D + col))
+                        : 0u;
+      };
+      qa[kk][0] = ld(ra, c);
+      qa[kk][1] = ld(rb, c);
+      qa[kk][2] = ld(ra, c + 8);
+      qa[kk][3] = ld(rb, c + 8);
     }
   }
 
-  if (sl == 0) l_s[sr] = l_row;
-  __syncthreads();
-  __half* og = p.out + ((size_t)bh * p.Sq + q0) * D;
+  float acc[kNd][4];
 #pragma unroll
-  for (int i = 0; i < kRpt; ++i) {
-    const int r = pr0 + i;
-    if (r < rows)
-      og[r * D + pd] = __float2half_rn(__fdiv_rn(acc[i], fmaxf(l_s[r], 1e-30f)));
+  for (int n = 0; n < kNd; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m_row[2] = {kNegCap, kNegCap};  // rows g, g + 8; fp16 values
+  float l_row[2] = {0.f, 0.f};
+  // S, then P, of the block: [k step][n8 half][row g / g + 8], half2 each
+  uint32_t s[NKT][2][2];
+
+  // ldmatrix lane addresses: lane l gives row l & 7 of matrix l >> 3.
+  // K (x4 = two n8 tiles' B fragments at one k step): rows (lm >> 1) * 8,
+  // chunk lm & 1; V (.trans, two n8 tiles of D): rows (lm & 1) * 8, chunk
+  // lm >> 1.  A k step's 16 rows keep each row's swizzle, so a lane's
+  // address at k step kt is one of these plus kt * kStep.
+  const int lr = lane & 7, lm = lane >> 3;
+  uint32_t k_off[kKd], v_off[kNd / 2];
+#pragma unroll
+  for (int kk = 0; kk < kKd; ++kk)
+    k_off[kk] = ks + swz<D>((lm >> 1) * 8 + lr, 2 * kk + (lm & 1));
+#pragma unroll
+  for (int np = 0; np < kNd / 2; ++np)
+    v_off[np] = vs + swz<D>((lm & 1) * 8 + lr, 2 * np + (lm >> 1));
+  constexpr uint32_t kStep = 16 * D * 2;  // bytes of a k step's 16 rows
+
+  for (int j = 0; j < nblk; ++j) {
+    const int kv0 = j * bkv;
+    const bool active = last >= r0 && (!p.causal || kv0 <= last);
+    const int nkt_w = p.causal ? min(nkt, (last - kv0) / 16 + 1) : nkt;
+    const bool masked = p.causal && kv0 + nkt_w * 16 - 1 > r0;
+    cp_wait<1>();  // K of this block (and the LUT) has landed
+    __syncthreads();
+
+    // l in the m16n8 C layout (c0, c1: row g; c2, c3: row g + 8), summed
+    // on the tensor cores as p times a column of ones
+    float lsum[4];
+    // a block whose every k step the warp takes, with no mask and no
+    // padded column, runs without the guards (kFull)
+    const bool full = nkt_w == NKT && !masked && !(bkv & 15);
+    auto scores = [&](auto tag) {
+      constexpr bool kFull = decltype(tag)::value;
+      // 1. scores, four k steps (eight n8 tiles, eight independent mma
+      // chains) at a time, rounded to fp16 as they are formed; the masked
+      // columns (diagonal blocks only) and the padded columns of a block's
+      // last k step are set to NEG_CAP, which leaves the max as it is
+      // (m >= NEG_CAP)
+      const int lim = r0 + g - kv0 - 2 * t;  // row g's last visible column
+#pragma unroll
+      for (int k4 = 0; k4 < NKT; k4 += 4) {
+        if (kFull || k4 < nkt_w) {
+          float c[4][2][4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+#pragma unroll
+            for (int e = 0; e < 8; ++e) c[u][e >> 2][e & 3] = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < kKd; ++kk) {
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              if (kFull || k4 + u < nkt_w) {
+                uint32_t b[4];
+                ldsm_x4(b, k_off[kk] + (k4 + u) * kStep);
+                mma16816(c[u][0], qa[kk], b[0], b[1]);
+                mma16816(c[u][1], qa[kk], b[2], b[3]);
+              }
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int kt = k4 + u;
+            if (kFull || kt < nkt_w) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  c[u][h][e] = __fmul_rn(c[u][h][e], p.scale);
+                if (!kFull && masked) {
+#pragma unroll
+                  for (int e = 0; e < 4; ++e)
+                    if (kt * 16 + h * 8 + (e & 1) > lim + (e >> 1) * 8)
+                      c[u][h][e] = kNegCap;
+                }
+                if (!kFull && kt == nkt - 1 && (bkv & 15)) {
+#pragma unroll
+                  for (int e = 0; e < 4; ++e)
+                    if (kt * 16 + h * 8 + 2 * t + (e & 1) >= bkv)
+                      c[u][h][e] = kNegCap;
+                }
+                s[kt][h][0] = as_u32(__floats2half2_rn(c[u][h][0], c[u][h][1]));
+                s[kt][h][1] = as_u32(__floats2half2_rn(c[u][h][2], c[u][h][3]));
+              }
+            }
+          }
+        }
+      }
+      // 2. fp16 row max over the block (exact in fp16), m_new, corr
+      const __half2 neg = __float2half2_rn(kNegCap);
+      __half2 mx2[2] = {neg, neg};
+#pragma unroll
+      for (int kt = 0; kt < NKT; ++kt) {
+        if (kFull || kt < nkt_w) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            mx2[0] = __hmax2(mx2[0], as_h2(s[kt][h][0]));
+            mx2[1] = __hmax2(mx2[1], as_h2(s[kt][h][1]));
+          }
+        }
+      }
+      __half2 m_new2[2];
+      float corr[2];
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        float mx = fmaxf(__low2float(mx2[rh]), __high2float(mx2[rh]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const __half m_new = __float2half_rn(fmaxf(m_row[rh], mx));
+        corr[rh] = __half2float(exp16<MODE, LUT_SMEM>(
+            __hsub(__float2half_rn(m_row[rh]), m_new), lut));
+        m_row[rh] = __half2float(m_new);
+        m_new2[rh] = __half2half2(m_new);
+      }
+      // p = exp(s - m_new) in place of S; the padded columns give 0
+#pragma unroll
+      for (int kt = 0; kt < NKT; ++kt) {
+        if (kFull || kt < nkt_w) {
+          const bool pad = !kFull && kt == nkt - 1 && (bkv & 15);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int col = kt * 16 + h * 8 + 2 * t;
+#pragma unroll
+            for (int rh = 0; rh < 2; ++rh) {
+              const __half2 x = __hsub2(as_h2(s[kt][h][rh]), m_new2[rh]);
+              uint32_t pv = as_u32(__halves2half2(
+                  exp16<MODE, LUT_SMEM>(__low2half(x), lut),
+                  exp16<MODE, LUT_SMEM>(__high2half(x), lut)));
+              if (pad) {
+                if (col >= bkv) pv &= 0xFFFF0000u;
+                if (col + 1 >= bkv) pv &= 0x0000FFFFu;
+              }
+              s[kt][h][rh] = pv;
+            }
+          }
+        }
+      }
+      lsum[0] = lsum[1] = __fmul_rn(l_row[0], corr[0]);
+      lsum[2] = lsum[3] = __fmul_rn(l_row[1], corr[1]);
+      // acc * corr, skipped where every row's corr is 1 (x * 1 = x)
+      if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+        for (int n = 0; n < kNd; ++n) {
+          acc[n][0] = __fmul_rn(acc[n][0], corr[0]);
+          acc[n][1] = __fmul_rn(acc[n][1], corr[0]);
+          acc[n][2] = __fmul_rn(acc[n][2], corr[1]);
+          acc[n][3] = __fmul_rn(acc[n][3], corr[1]);
+        }
+      }
+    };
+    if (active) {
+      if (full) scores(Full<true>{});
+      else scores(Full<false>{});
+    }
+    __syncthreads();  // every warp is done with this block's K
+    if (j + 1 < nblk) load_tile<D>(ks, kg + (size_t)(kv0 + bkv) * D, bkv, tid);
+    cp_commit();
+    cp_wait<1>();  // V of this block has landed
+    __syncthreads();
+
+    // 3. acc += p.v and l += sum p on the tensor cores
+    auto attend = [&](auto tag) {
+      constexpr bool kFull = decltype(tag)::value;
+      constexpr uint32_t kOnes = 0x3C003C00u;  // half2 (1, 1)
+#pragma unroll
+      for (int kt = 0; kt < NKT; ++kt) {
+        if (kFull || kt < nkt_w) {
+          const uint32_t a[4] = {s[kt][0][0], s[kt][0][1], s[kt][1][0],
+                                 s[kt][1][1]};
+          mma16816(lsum, a, kOnes, kOnes);
+#pragma unroll
+          for (int np = 0; np < kNd / 2; ++np) {
+            uint32_t b[4];
+            ldsm_x4_t(b, v_off[np] + kt * kStep);
+            mma16816(acc[2 * np], a, b[0], b[1]);
+            mma16816(acc[2 * np + 1], a, b[2], b[3]);
+          }
+        }
+      }
+      l_row[0] = lsum[0];
+      l_row[1] = lsum[2];
+    };
+    if (active) {
+      if (full) attend(Full<true>{});
+      else attend(Full<false>{});
+    }
+    __syncthreads();  // every warp is done with this block's V
+    if (j + 1 < nblk) load_tile<D>(vs, vg + (size_t)(kv0 + bkv) * D, bkv, tid);
+    cp_commit();
+  }
+  cp_wait<0>();
+
+  __half* og = p.out + (size_t)bh * p.Sq * D;
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const int r = r0 + g + rh * 8;
+    if (r >= p.Sq) continue;
+    const float l = fmaxf(l_row[rh], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < kNd; ++n)
+      *reinterpret_cast<__half2*>(og + (size_t)r * D + n * 8 + 2 * t) =
+          __floats2half2_rn(__fdiv_rn(acc[n][2 * rh], l),
+                            __fdiv_rn(acc[n][2 * rh + 1], l));
   }
 }
 
-template <int D, int MODE>
+template <int D, int NKT, int MODE, bool LUT_SMEM>
 int launch(const Params& p, int BH, cudaStream_t stream) {
-  const size_t bytes = (size_t)Smem<D>::words(p.bkv) * 4;
-  auto kern = lut_softmax_attention_kernel<D, MODE>;
+  const size_t bytes =
+      2 * (size_t)tile_bytes(p.bkv, D) + (LUT_SMEM ? kLutBytes : 0);
+  auto kern = lut_softmax_attention_kernel<D, NKT, MODE, LUT_SMEM>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.Sq + kRows - 1) / kRows, BH);
+  const dim3 grid(BH, (p.Sq + kRows - 1) / kRows);
   kern<<<grid, kThreads, bytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_mode(const Params& p, int BH, int mode, cudaStream_t stream) {
+template <int D, int NKT>
+int launch_mode(const Params& p, int BH, int mode, int lut_smem,
+                cudaStream_t stream) {
   switch (mode) {
-    case kLut: return launch<D, kLut>(p, BH, stream);
-    case kPoly: return launch<D, kPoly>(p, BH, stream);
-    case kExact: return launch<D, kExact>(p, BH, stream);
+    case kLut:
+      return lut_smem ? launch<D, NKT, kLut, true>(p, BH, stream)
+                      : launch<D, NKT, kLut, false>(p, BH, stream);
+    case kPoly: return launch<D, NKT, kPoly, false>(p, BH, stream);
+    case kExact: return launch<D, NKT, kExact, false>(p, BH, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
+template <int D>
+int launch_bkv(const Params& p, int BH, int mode, int lut_smem,
+               cudaStream_t stream) {
+  return p.bkv <= 128 ? launch_mode<D, 8>(p, BH, mode, lut_smem, stream)
+                      : launch_mode<D, 16>(p, BH, mode, lut_smem, stream);
+}
+
 }  // namespace
 
-// mode: 0 lut, 1 poly, 2 exact.  q (BH, Sq, D), k and v (BH / G, Skv, D),
-// out (BH, Sq, D), all fp16 and 16-byte aligned; D in {32, 64, 128};
-// bkv divides Skv and is at most 256.  Returns the CUDA error code of the
-// launch (0 on success).
+// mode: 0 lut, 1 poly, 2 exact; lut_smem: stage the LUT in shared memory
+// (lut mode).  q (BH, Sq, D), k and v (BH / G, Skv, D), out (BH, Sq, D),
+// all fp16 and 16-byte aligned; D in {32, 64, 128}; bkv divides Skv and is
+// at most 256.  Returns the CUDA error code of the launch (0 on success).
 extern "C" int lut_softmax_attention_launch(
     const void* q, const void* k, const void* v, const void* lut, void* out,
     int BH, int Sq, int Skv, int D, int G, int bkv, int causal, int mode,
-    float scale, void* stream) {
+    int lut_smem, float scale, void* stream) {
   if (bkv < 1 || bkv > kMaxBkv || Skv % bkv || G < 1 || BH % G)
     return (int)cudaErrorInvalidValue;
   if (BH == 0 || Sq == 0) return 0;
@@ -290,9 +525,9 @@ extern "C" int lut_softmax_attention_launch(
            Sq, Skv, G, bkv, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch_mode<32>(p, BH, mode, s);
-    case 64: return launch_mode<64>(p, BH, mode, s);
-    case 128: return launch_mode<128>(p, BH, mode, s);
+    case 32: return launch_bkv<32>(p, BH, mode, lut_smem, s);
+    case 64: return launch_bkv<64>(p, BH, mode, lut_smem, s);
+    case 128: return launch_bkv<128>(p, BH, mode, lut_smem, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -26,6 +26,10 @@ plain_lut_softmax_attention = ref.lut_flash_attention_ref
 EXP_MODES = ref.FLASH_EXP_MODES
 HEAD_DIMS = (32, 64, 128)  # the CUDA kernel's head dims
 MAX_BKV = 256              # the CUDA kernel's longest KV block
+ROWS_PER_BLOCK = 64        # query rows per CUDA thread block
+# None: choose by grid (lut_in_shared); tests and
+# scripts/compare_kernels.py set True or False to force one side
+_LUT_IN_SHARED = None
 
 
 def _lib() -> ctypes.CDLL:
@@ -33,9 +37,21 @@ def _lib() -> ctypes.CDLL:
     fn = lib.lut_softmax_attention_launch
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 5 + [I] * 8 + [ctypes.c_float, P]
+        fn.argtypes = [P] * 5 + [I] * 9 + [ctypes.c_float, P]
         fn.restype = ctypes.c_int
     return lib
+
+
+def lut_in_shared(BH: int, Sq: int, device) -> bool:
+    """lut mode: stage the 64 KiB exp table in shared memory once per
+    thread block when the grid fits in one wave of one block per SM, where
+    the table costs no occupancy; otherwise read it through the read-only
+    cache (two blocks per SM)."""
+    if _LUT_IN_SHARED is not None:
+        return _LUT_IN_SHARED
+    blocks = BH * -(-Sq // ROWS_PER_BLOCK)
+    return blocks <= torch.cuda.get_device_properties(
+        device).multi_processor_count
 
 
 def lut_softmax_attention(q, k, v, lut, *, causal: bool = True,
@@ -97,7 +113,9 @@ def lut_softmax_attention(q, k, v, lut, *, causal: bool = True,
         err = _lib().lut_softmax_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lut_ptr,
             out.data_ptr(), BH, Sq, Skv, D, kv_group, bkv, int(causal),
-            EXP_MODES.index(exp_mode), 1.0 / math.sqrt(D),
+            EXP_MODES.index(exp_mode),
+            int(exp_mode == "lut" and lut_in_shared(BH, Sq, q.device)),
+            1.0 / math.sqrt(D),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lut_softmax_attention kernel launch failed "

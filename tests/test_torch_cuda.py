@@ -132,6 +132,43 @@ def test_cuda_lut_dequant_kv_matches_plain_bitwise(cuda, mode, R):
     assert torch.equal(got, want)
 
 
+# (mode, R, Hkv, D, gc): a partial warp (q8 R5 x 1 x 16 and q4 R3 x 1 x
+# 32 are 20 and 24 float4s of output), partial blocks, and scale groups of
+# 1 and 2 dims (one scale per element, not per float4)
+K4_EDGES = [("q8", 5, 1, 16, 16), ("q4", 3, 1, 32, 16),
+            ("q8", 37, 2, 128, 16), ("q4", 37, 2, 128, 16),
+            ("q8", 300, 2, 64, 2), ("q4", 300, 2, 64, 2),
+            ("q8", 9, 4, 96, 1), ("q4", 9, 4, 96, 1),
+            ("q8", 1000, 2, 128, 4), ("q4", 1000, 2, 128, 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("edge", K4_EDGES)
+def test_cuda_lut_dequant_kv_edges_match_plain_bitwise(cuda, edge):
+    mode, R, Hkv, D, gc = edge
+    gr = 2 if Hkv % 2 == 0 else 1
+    gen = torch.Generator().manual_seed(R * D + gc)
+    q = _to(quantize_kv(torch.randn((R, Hkv, D), generator=gen) * 3.0,
+                        mode=mode, gr=gr, gc=gc), cuda)
+    args = (q["codes"], q["scales"], ops.q4_codebook(cuda))
+    got = K4.lut_dequant_kv(*args, mode=mode, gr=gr, gc=gc)
+    want = K4.plain_lut_dequant_kv(*args, mode=mode, gr=gr, gc=gc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["q8", "q4"])
+def test_cuda_lut_dequant_kv_is_deterministic(cuda, mode):
+    gr, gc = kv_tile_geometry(2, 128)
+    gen = torch.Generator().manual_seed(11)
+    q = _to(quantize_kv(torch.randn((12544, 2, 128), generator=gen),
+                        mode=mode, gr=gr, gc=gc), cuda)
+    a, b = (ops.lut_dequant_gather(q) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
 @pytest.mark.gpu
 def test_cuda_lut_dequant_kv_rejects_short_rows(cuda):
     """head_dim 8 gives 4-byte q4 code rows, which the kernel's 16-byte
@@ -143,16 +180,33 @@ def test_cuda_lut_dequant_kv_rejects_short_rows(cuda):
 
 # (BH, Sq, Skv, D, kv_group, causal, bkv): an odd KV block (79, prime S)
 # with one KV head for four query heads, KV blocks of 64 and 128 over one
-# input, a causal Sq < Skv, a KV block of 256 and head_dim 32
+# input, a causal Sq < Skv, a KV block of 256 and head_dim 32; then the
+# tensor-core kernel's edges: KV blocks that are not a multiple of its k
+# step of 16 (100, and 79 with causal Sq < Skv), query rows that fill
+# neither a warp's 16 nor a block's 64 (8, 79, 130), G 6, and KV blocks of
+# 256 at head_dim 128
 FLASH_SHAPES = [(4, 79, 79, 128, 4, True, 79), (6, 256, 256, 64, 3, True, 64),
                 (6, 256, 256, 64, 3, True, 128), (4, 48, 192, 32, 2, True, 96),
-                (8, 40, 512, 64, 1, False, 256)]
+                (8, 40, 512, 64, 1, False, 256),
+                (12, 200, 200, 128, 6, True, 100),
+                (3, 100, 300, 64, 3, False, 100),
+                (6, 79, 237, 32, 3, True, 79),
+                (2, 8, 1024, 64, 1, False, 128),
+                (12, 130, 256, 128, 6, True, 256),
+                (2, 16, 512, 128, 1, True, 256)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("exp_mode", ["lut", "poly", "exact"])
+@pytest.mark.parametrize("exp_mode", ["lut", "poly", "exact", "lut_shared",
+                                      "lut_global"])
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
-def test_cuda_lut_softmax_attention_matches_plain(cuda, exp_mode, shape):
+def test_cuda_lut_softmax_attention_matches_plain(cuda, exp_mode, shape,
+                                                  monkeypatch):
+    """lut: the table where the wrapper puts it; lut_shared / lut_global:
+    forced into shared memory / read through the cache."""
+    if "_" in exp_mode:
+        monkeypatch.setattr(K5, "_LUT_IN_SHARED", exp_mode == "lut_shared")
+    exp_mode = exp_mode.split("_")[0]
     BH, Sq, Skv, D, G_, causal, bkv = shape
     gen = torch.Generator().manual_seed(BH * Skv + bkv)
     q = (torch.randn((BH, Sq, D), generator=gen) * 0.5).half()
@@ -168,6 +222,41 @@ def test_cuda_lut_softmax_attention_matches_plain(cuda, exp_mode, shape):
     # the JAX package's kernel-vs-oracle bar
     torch.testing.assert_close(got.cpu().float(), want.float(), atol=2e-3,
                                rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exp_mode", ["lut_shared", "lut_global", "poly",
+                                      "exact"])
+def test_cuda_lut_softmax_attention_is_deterministic(cuda, exp_mode,
+                                                     monkeypatch):
+    """One pass per (head, 64-row tile), no split KV: two calls, the same
+    bits; the LUT read from shared memory or through the cache alike."""
+    monkeypatch.setattr(K5, "_LUT_IN_SHARED", exp_mode == "lut_shared")
+    exp_mode = exp_mode.split("_")[0]
+    gen = torch.Generator().manual_seed(2)
+    q = (torch.randn((12, 300, 128), generator=gen) * 0.5).half().to(cuda)
+    k, v = ((torch.randn((2, 300, 128), generator=gen) * 0.5).half().to(cuda)
+            for _ in range(2))
+    kw = dict(causal=True, bq=300, bkv=100, exp_mode=exp_mode, kv_group=6)
+    a, b = (K5.lut_softmax_attention(q, k, v, ops.exp_lut(cuda), **kw)
+            for _ in range(2))
+    want = K5.lut_softmax_attention(q.cpu(), k.cpu(), v.cpu(), ops.exp_lut(),
+                                    **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a.cpu().float(), want.float(), atol=2e-3,
+                               rtol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_lut_softmax_attention_lut_placement(cuda):
+    """The table goes to shared memory only when the grid (BH x 64-row
+    tiles) fits in one block per SM."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert K5.lut_in_shared(sms, 64, cuda)
+    assert K5.lut_in_shared(1, 64 * sms, cuda)
+    assert not K5.lut_in_shared(sms, 65, cuda)
+    assert not K5.lut_in_shared(12, 2048, cuda)
 
 
 @pytest.mark.gpu
