@@ -26,14 +26,26 @@ Phases, one JSON line each:
    teacher-forced decode and partial-prefill (cached prefix) logits must
    agree;
 5. ``serve``: ``repro_torch.launch.serve`` at the full width of
-   qwen2.5-1.5b (28 layers, random seeded weights, W4A16) serving Best-of-8
-   over 4 tasks on the paged pool, once per path: Q8, Q4 and bf16 KV, each
-   in exact and LUT softmax; then with the prefix cache over a shared
-   3-shot header: Best-of-8 over 4 tasks on Q8 KV, and 8 plain requests
-   (one batched admission) on Q4 KV.  Every request must complete, the pool
-   must drain to the cache's pinned blocks, and each run must launch its
-   kernels exactly as often as its steps and prefills require (counters
-   reset just before each run, read just after);
+   qwen2.5-1.5b (28 layers, random seeded weights, W4A16), once per path:
+   continuous Best-of-8 over 4 tasks on Q8, Q4 and bf16 KV, each in exact
+   and LUT softmax; then with the prefix cache over a shared 3-shot
+   header: Best-of-8 over 4 tasks on Q8 KV, and 8 plain requests (one
+   batched admission) on Q4 KV; then, on Q8 KV with exact softmax,
+   self-consistency (Best-of-8, 32 tokens, 2 tasks) through the direct
+   path, and PRM beam search (width 2 x expand 4, 4 boundaries of 8
+   tokens, 2 tasks) through the scheduler's beam request class and
+   through the direct path.  Every request must complete, the pool must
+   drain to the cache's pinned blocks, and each run must launch its
+   kernels exactly as often as its decode steps and prefills require
+   (counters reset just before each run, read just after).  Both routes
+   are measured alike: ``decode_tokens`` counts the rows each decode step
+   advances (frozen beam lanes and idle slots not), ``decode_tok_per_s``
+   divides it by the wall time from the engine's build to the serve's
+   end, and a step's time (p50, p99) is ``DecodeEngine._step_core``
+   ended by a synchronize.  The memory peak is reset once the engine is
+   built: ``peak_device_bytes`` is the serving peak,
+   ``load_peak_device_bytes`` the weights' init, beside the pool's own
+   ``peak_kv_bytes``;
 6. ``flash``: ``ops.flash_attention`` (K5) in its three exp modes (lut,
    poly, exact) at qwen2.5-1.5b's attention geometry (12 query heads, 2 KV
    heads, head_dim 128, causal) for (B, S) = (1, 2048), (8, 256) and
@@ -47,7 +59,8 @@ Phases, one JSON line each:
    up; the f32 weights the serve quantizes, seed 0); codes and scales
    exactly equal to the plain version, >= 99.9% of 4-bit codes equal to
    the offline quantizer's, and each leaf through K3 at M = 8 against
-   ``dequant_matmul_ref``; each projection shape timed;
+   ``dequant_matmul_ref``; each projection shape timed beside an empty
+   kernel on its grid and on one block (the launch floor);
 8. ``profile``: where a decode step's time goes, under ``torch.profiler``,
    with K3's and K1/K2's device ms per decode step.
 
@@ -90,7 +103,7 @@ REPLACES = {
 GEMM_KN = ((1536, 1536), (1536, 256), (1536, 8960))  # qwen2.5-1.5b Q4 (K, N)
 SERVE_ARGS = ["--arch", "qwen2.5-1.5b", "--quantize", "--method",
               "best_of_n", "--budget", "8", "--tasks", "4", "--continuous",
-              "--paged"]
+              "--paged"]  # continuous Best-of-8 over 4 tasks
 
 
 def emit(phase: str, **kw) -> None:
@@ -694,15 +707,24 @@ def quantize_phase(results: list, dev: str = "cuda",
     if agree < 0.999:
         raise AssertionError(f"tile_quantize: {agree:.5f} of 4-bit codes "
                              f"equal to the offline quantizer's (< 0.999)")
+    # the launch floor: an empty kernel timed the same way, on one block
+    # and on each shape's grid
+    one_block = torch.zeros((2, 32), device=dev)  # a one-block grid
+    floor_1block = time_ms(lambda: TK.empty_launch(one_block))
+    floors = {}
     for K, N in sorted(by_shape):
         w = next(w for w in weights if tuple(w.shape) == (K, N))
         flops, nbytes = quantize_cost(K, N)  # f32 weight in, codes out
-        b_ms, b_by = bound(nbytes + K * N // 16 * 2, flops, "float32")
+        # and the (K / 2, N / 16) fp16 scales out: K N / 16 bytes
+        b_ms, b_by = bound(nbytes + K * N // 16, flops, "float32")
         run = lambda: TK.tile_quantize(w)
+        floors[f"{K}x{N}"] = time_ms(lambda: TK.empty_launch(w))
         row = {"name": f"tile_quantize/K{K}xN{N}", "route": "cuda",
                "source": QUANT_SRC, "replaces": REPLACES["tile_quantize"],
                "max_abs_err": 0.0, "ms": time_ms(run),
                "call_ms": call_ms(run),
+               "launch_floor_ms": floors[f"{K}x{N}"],
+               "wide_loads": TK.wide_loads(w),
                "plain_ms": time_ms(lambda: TK.plain_tile_quantize(w),
                                    iters=10),
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -712,6 +734,7 @@ def quantize_phase(results: list, dev: str = "cuda",
     emit("quantize", launches=counts["tile_quantize"], by_shape={
         "x".join(map(str, k)): n for k, n in sorted(by_shape.items())},
         min_code_agreement_vs_offline=agree, k3_max_abs_err=k3_err,
+        empty_kernel_ms_1block=floor_1block, empty_kernel_ms_by_shape=floors,
         seconds=time.perf_counter() - t0)
     return {"counts": counts, "by_shape": by_shape}
 
@@ -834,28 +857,57 @@ def reference_check() -> None:
 # ---------------------------------------------------------------------------
 
 
-# every (KV pool, softmax) path of the serve slice, the north-star path
-# (Q8 KV, exact softmax) first; "none" is the bf16 pool of K1.  Then the
-# prefix-cache paths (exact softmax) over a shared 3-shot header: the
-# north-star path with the cache (Best-of-8 groups, one partial prefill
-# per hit), and plain requests on Q4 KV (the batched ragged admission)
-SERVE_PATHS = {f"{kv}/{impl}": (kv, impl, ["--kv-quant", kv])
+# every (KV pool, softmax) path of the continuous Best-of-8 serve, the
+# north-star path (Q8 KV, exact softmax) first; "none" is the bf16 pool of
+# K1.  Then the prefix-cache paths (exact softmax) over a shared 3-shot
+# header: the north-star path with the cache (Best-of-8 groups, one
+# partial prefill per hit), and plain requests on Q4 KV (the batched
+# ragged admission).  Then the paper's other two TTS methods on Q8 KV,
+# exact: self-consistency (Best-of-8 votes) through the direct path, and
+# PRM beam search (width 2 x expand 4, 4 scoring boundaries of 8 tokens)
+# through the scheduler's beam request class and through the direct
+# path.  Each entry: (kv, impl, serve arguments, requests, samples each).
+BASE_ARGS = ["--arch", "qwen2.5-1.5b", "--quantize", "--paged"]
+BEAM_ARGS = ["--kv-quant", "q8", "--method", "beam_search", "--tasks", "2",
+             "--beam-width", "2", "--beam-expand", "4", "--beam-steps", "4",
+             "--step-tokens", "8"]
+SERVE_PATHS = {f"{kv}/{impl}": (kv, impl, SERVE_ARGS + ["--kv-quant", kv],
+                                4, 8)
                for kv in ("q8", "q4", "none") for impl in ("exact", "lut")}
-SERVE_PATHS["q8/prefix"] = ("q8", "exact", [
-    "--kv-quant", "q8", "--prefix-cache", "--fewshot", "3"])
-SERVE_PATHS["q4/prefix"] = ("q4", "exact", [
+SERVE_PATHS["q8/prefix"] = ("q8", "exact", SERVE_ARGS + [
+    "--kv-quant", "q8", "--prefix-cache", "--fewshot", "3"], 4, 8)
+SERVE_PATHS["q4/prefix"] = ("q4", "exact", SERVE_ARGS + [
     "--kv-quant", "q4", "--prefix-cache", "--fewshot", "3", "--budget", "1",
-    "--tasks", "8"])
+    "--tasks", "8"], 8, 1)
+SERVE_PATHS["sc/direct"] = ("q8", "exact", BASE_ARGS + [
+    "--kv-quant", "q8", "--method", "self_consistency", "--budget", "8",
+    "--tasks", "2", "--max-tokens", "32"], 2, 8)
+SERVE_PATHS["beam/sched"] = ("q8", "exact",
+                             BASE_ARGS + BEAM_ARGS + ["--continuous"], 2, 2)
+SERVE_PATHS["beam/direct"] = ("q8", "exact", BASE_ARGS + BEAM_ARGS, 2, 2)
 
 
 def serve_runs(n_layers: int = 28) -> dict:
     """Drive the serve entry point once per path.  Launch counts are reset
     just before and read just after each run, and kept per run, with the
-    engine's prefill calls recorded on their own: returns {path:
-    {"counts": {wrapper: n}, "shapes": {(M, K, N): n}, "kv_shapes":
-    {(mode, R): n}}}."""
+    engine's prefill calls and decode steps recorded on their own (by
+    wrapping ``DecodeEngine.prefill`` and ``DecodeEngine._step_core``,
+    which every decode step of both the scheduler and the direct path
+    runs).  Both routes are measured alike: a step's time is
+    ``_step_core`` ended by a synchronize, decode tokens are the rows
+    that step advances (not done, not frozen), and the serve's wall time
+    runs from ``serve.build_engine``'s return to the serve's end.  The
+    direct route's per-task results (``controller.run_method``) and its
+    ``reorder`` calls are recorded to check that every task finished.
+    The CUDA memory peak is reset once ``serve.build_engine`` returns, so
+    ``peak_device_bytes`` covers serving and ``load_peak_device_bytes``
+    the weights' random init and quantization.
+    Returns {path: {"counts": {wrapper: n}, "shapes": {(M, K, N): n},
+    "kv_shapes": {(mode, R): n}}}."""
+    import numpy as np
     import torch
 
+    from repro_torch.core import controller
     from repro_torch.kernels import lut_dequant_kv as LK
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -864,92 +916,170 @@ def serve_runs(n_layers: int = 28) -> dict:
 
     runs = {}
     orig_prefill = DecodeEngine.prefill
-    for path, (kv_quant, impl, args) in SERVE_PATHS.items():
+    orig_step = DecodeEngine._step_core
+    orig_build = serve.build_engine
+    orig_reorder = DecodeEngine.reorder
+    orig_run = controller.run_method
+    for path, (kv_quant, impl, args, n_req, n_samp) in SERVE_PATHS.items():
         prefills = []  # (batch, padded width, partial?) per engine prefill
+        steps = []     # (rows, seconds to the step's end) per decode step
+        live = []      # rows each decode step advances (device scalars)
+        reorders = [0]
+        tasks = []     # (TTSResult, reorders) per direct-route task
+        built = {}
 
         def recording(self, tokens, lengths=None, **kw):
             prefills.append((*tokens.shape, kw.get("cached_table")
                              is not None))
             return orig_prefill(self, tokens, lengths, **kw)
 
+        def stepping(self, state, *a, **kw):
+            t0 = time.perf_counter()
+            out = orig_step(self, state, *a, **kw)
+            torch.cuda.synchronize()
+            steps.append((int(state.done.shape[0]),
+                          time.perf_counter() - t0))
+            live.append((~state.done).sum())
+            return out
+
+        def reordering(self, *a, **kw):
+            reorders[0] += 1
+            return orig_reorder(self, *a, **kw)
+
+        def running(*a, **kw):
+            before = reorders[0]
+            res = orig_run(*a, **kw)
+            tasks.append((res, reorders[0] - before))
+            return res
+
+        def building(a):
+            engine, tok = orig_build(a)
+            torch.cuda.synchronize()
+            built["load_peak"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            built["engine"] = engine
+            built["t0"] = time.perf_counter()
+            return engine, tok
+
         prev = L.set_paged_attention_impl(impl)
         DecodeEngine.prefill = recording
+        DecodeEngine._step_core = stepping
+        DecodeEngine.reorder = reordering
+        controller.run_method = running
+        serve.build_engine = building
         try:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             ops.reset_launch_counts()
             t0 = time.perf_counter()
-            rows = serve.main(SERVE_ARGS + args)
+            rows = serve.main(args)
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            t1 = time.perf_counter()
             counts = ops.launch_counts()
             shapes = ops.gemm_launches_by_shape()
             kv_shapes = dict(LK.lut_dequant_kv.shapes)
+            peak = torch.cuda.max_memory_allocated()
         finally:
             DecodeEngine.prefill = orig_prefill
+            DecodeEngine._step_core = orig_step
+            DecodeEngine.reorder = orig_reorder
+            controller.run_method = orig_run
+            serve.build_engine = orig_build
             L.set_paged_attention_impl(prev)
-        s = rows[0]["serving"]
-        attn = "paged_attention" if kv_quant == "none" else \
-            "quant_paged_attention"
-        n_req = 8 if "--tasks" in args else 4
-        n_samp = 1 if "--budget" in args else 8
-        if s["completed_requests"] != n_req or \
-                s["completed_samples"] != n_req * n_samp:
-            raise AssertionError(f"serve {path}: not every request "
-                                 f"completed: {s}")
-        pinned = s.get("prefix_cache", {}).get("cached_blocks", 0)
-        if s["kv"]["blocks_in_use"] != pinned:
+        row = rows[0]
+        s = row.get("serving")
+        pool = built["engine"].pool
+        pinned = s.get("prefix_cache", {}).get("cached_blocks", 0) if s \
+            else 0
+        if pool.blocks_in_use != pinned:
             raise AssertionError(f"serve {path}: pool holds "
-                                 f"{s['kv']['blocks_in_use']} blocks after "
-                                 f"drain, expected the {pinned} cache-pinned")
+                                 f"{pool.blocks_in_use} blocks after drain, "
+                                 f"expected the {pinned} cache-pinned")
+        # every request completes: the scheduler's counts, or on the
+        # direct path one result of n_samp completions per task, after one
+        # prefill each; beam search reaches a scoring boundary (a prune
+        # and expand) in every task
+        beam = row["method"] == "beam_search"
+        if s is not None:
+            done_ok = (s["completed_requests"] == n_req
+                       and s["completed_samples"] == n_req * n_samp
+                       and len(steps) == s["steps"]
+                       and len(prefills) == s["prefill_calls"]
+                       and (not beam or s["beam_boundaries"] >= n_req))
+        else:
+            done_ok = (len(prefills) == n_req and len(tasks) == n_req
+                       and all(len(r.completions) == n_samp
+                               and (not beam or n >= 1) for r, n in tasks))
+        if not done_ok:
+            raise AssertionError(
+                f"serve {path}: not every request completed: {row}, "
+                f"{len(prefills)} prefills, {len(steps)} steps, "
+                f"{[(len(r.completions), n) for r, n in tasks]} "
+                f"(completions, reorders) per direct task")
         partial = sum(1 for *_, p in prefills if p)
         if "--prefix-cache" in args and (s["prefix_cache_hits"] < 1
                                          or partial < 1):
             raise AssertionError(f"serve {path}: no prefix-cache hit")
         # one attention launch per layer per decode step; two Q4
-        # projections per layer at each (K, N) per decode step (M = the 8
-        # slots) and per prefill (M = batch x padded prompt); two KV
-        # dequant launches (K and V) per partial prefill
-        want = {attn: n_layers * s["steps"],
+        # projections per layer at each (K, N) per decode step (M = the
+        # step's rows: the slots, or the direct path's batch) and per
+        # prefill (M = batch x padded width); two KV dequant launches (K
+        # and V) per partial prefill
+        attn = "paged_attention" if kv_quant == "none" else \
+            "quant_paged_attention"
+        want = {attn: n_layers * len(steps),
                 "lut_dequant_kv": 2 * partial,
                 # K5 and K6 are off the served path, as in the JAX package
                 "lut_softmax_attention": 0, "tile_quantize": 0}
         for k, n in GEMM_KN:
-            want[(8, k, n)] = 2 * n_layers * s["steps"]
-            for b, width, _ in prefills:
-                want[(b * width, k, n)] = want.get((b * width, k, n), 0) \
-                    + 2 * n_layers
+            for m in [rows_ for rows_, _ in steps] + [b * width for b, width,
+                                                      _ in prefills]:
+                want[(m, k, n)] = want.get((m, k, n), 0) + 2 * n_layers
         got = {**counts, **shapes}
-        if len(prefills) != s["prefill_calls"] or \
-                any(got.get(key, 0) != n for key, n in want.items()) or \
+        if any(got.get(key, 0) != n for key, n in want.items()) or \
                 counts["lut_dequant_gemm"] != sum(shapes.values()):
             raise AssertionError(f"serve {path}: launches {got}, expected "
                                  f"{want}")
         runs[path] = {"counts": counts, "shapes": shapes,
                       "kv_shapes": kv_shapes}
+        wall_s = t1 - built["t0"]
+        decode = int(torch.stack(live).sum()) if live else 0
+        step_s = np.array([dt for _, dt in steps])
+        p50, p99 = (float(np.percentile(step_s, q)) for q in (50, 99))
         emit("serve", path=path, kv_quant=kv_quant, impl=impl,
-             accuracy=rows[0]["accuracy"],
-             decode_tokens=s["decode_tokens"], steps=s["steps"],
-             prefill_calls=s["prefill_calls"],
-             partial_prefills=partial,
-             prefill_tokens=s["prefill_tokens"],
-             prefill_tokens_saved=s["prefill_tokens_saved"],
-             prefill_calls_per_request=s["prefill_calls_per_request"],
-             admission_batch_max=s["admission_batch_max"],
-             prefix_cache_hits=s["prefix_cache_hits"],
-             cache_pinned_blocks=pinned,
-             decode_tok_per_s=s["decode_tok_per_s"],
-             step_time_p50_ms=s["step_time_p50"] * 1e3,
-             step_time_p99_ms=s["step_time_p99"] * 1e3,
-             serve_wall_s=s["wall_s"], main_wall_s=wall,
-             peak_device_bytes=torch.cuda.max_memory_allocated(),
+             method=row["method"],
+             route="scheduler" if s is not None else "direct",
+             accuracy=row["accuracy"], decode_tokens=decode,
+             direct_reorders=[n for _, n in tasks],
+             steps=len(steps), step_rows=sorted({r for r, _ in steps}),
+             prefill_calls=len(prefills), partial_prefills=partial,
+             prefill_widths=sorted({b * w for b, w, _ in prefills}),
+             decode_tok_per_s=decode / wall_s if wall_s > 0 else 0.0,
+             step_time_p50_ms=p50 * 1e3, step_time_p99_ms=p99 * 1e3,
+             serve_wall_s=wall_s, main_wall_s=t1 - t0,
+             peak_device_bytes=peak,
+             load_peak_device_bytes=built["load_peak"],
+             peak_kv_bytes=pool.stats()["peak_bytes_in_use"],
+             pool_reserved_bytes=pool.stats()["pool_reserved_bytes"],
              launches=counts,
              gemm_launches={"x".join(map(str, k)): v
                             for k, v in sorted(shapes.items())},
              dequant_kv_launches={f"{m}/R{r}": v
                                   for (m, r), v in sorted(kv_shapes.items())},
-             attn_launches_per_decode_step=counts[attn] / max(1, s["steps"]),
-             preemptions=s["preemptions"])
+             attn_launches_per_decode_step=counts[attn] / max(1, len(steps)),
+             **({} if s is None else dict(
+                 prefill_tokens=s["prefill_tokens"],
+                 prefill_tokens_saved=s["prefill_tokens_saved"],
+                 prefill_calls_per_request=s["prefill_calls_per_request"],
+                 admission_batch_max=s["admission_batch_max"],
+                 prefix_cache_hits=s["prefix_cache_hits"],
+                 cache_pinned_blocks=pinned,
+                 preemptions=s["preemptions"],
+                 beam_boundaries=s["beam_boundaries"],
+                 prm_batches=s["prm_batches"],
+                 # slots a lane held per step, frozen beam lanes included
+                 sched_slot_steps=s["decode_tokens"],
+                 sched_peak_kv_bytes=s["peak_kv_bytes"])))
     return runs
 
 
@@ -971,12 +1101,14 @@ def profile_decode() -> None:
     tasks = T.gen_dataset(123, 1)
     spec = TTSSpec("best_of_n", args.budget, args.max_tokens)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    sweep(engine, tok, tasks, [spec], gen, R.OracleVerifier())  # warm
+    sweep(engine, tok, tasks, [spec], gen, R.OracleVerifier(),
+          continuous=True)  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rows = sweep(engine, tok, tasks, [spec], gen, R.OracleVerifier())
+        rows = sweep(engine, tok, tasks, [spec], gen, R.OracleVerifier(),
+                     continuous=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     steps = rows[0]["serving"]["steps"]
@@ -1015,7 +1147,8 @@ def kernel_rows(results: list, runs: dict, phases: dict) -> list:
     count of the first path that launched the row's (M, K, N), and every
     path's count beside it; K4 rows carry their path's count at the row's
     (mode, R); K5 and K6 rows their phase's count at the row's shape.  A
-    row whose kernel its path or phase never launched fails."""
+    row whose kernel its path or phase never launched fails.  K1/K2 rows,
+    like K3's, carry every path's count beside their own."""
     kernels = []
     for row in results:
         row = dict(row)
@@ -1030,6 +1163,8 @@ def kernel_rows(results: list, runs: dict, phases: dict) -> list:
                                        for p, r in runs.items()}
         else:
             row["launches"] = runs[row["path"]]["counts"][key]
+            row["launches_by_path"] = {p: r["counts"][key]
+                                       for p, r in runs.items()}
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']}: not launched on its path")
         kernels.append(row)
@@ -1061,10 +1196,12 @@ def main() -> int:
     runs = serve_runs()
     # K3 and K4 at the shapes the serve runs launched them with: K3's M on
     # the north-star path (8 decode slots, a Best-of-N group's padded
-    # prompt) and on the prefix paths (each prefill's batch x its longest
-    # suffix); K4's R on the prefix paths
+    # prompt), on the prefix paths (each prefill's batch x its longest
+    # suffix) and on the TTS paths (the direct path's 64-token prompt
+    # width); K4's R on the prefix paths
     gemm_m, kv_r = {}, {}
-    for path in ("q8/exact", "q8/prefix", "q4/prefix"):
+    for path in ("q8/exact", "q8/prefix", "q4/prefix", "sc/direct",
+                 "beam/sched", "beam/direct"):
         for m, _, _ in runs[path]["shapes"]:
             gemm_m.setdefault(m, path)
         for key in runs[path]["kv_shapes"]:

@@ -10,7 +10,9 @@ search in ``quant/tile_quant``; the two agree on all but a few codes.
 For CPU tensors the wrapper runs the plain version
 (:func:`plain_tile_quantize`); for CUDA tensors it launches the kernel or
 raises.  ``tile_quantize.launches`` counts kernel launches, and
-``tile_quantize.shapes`` counts them by (K, N).
+``tile_quantize.shapes`` counts them by (K, N).  :func:`empty_launch`
+launches an empty kernel on the grid the kernel takes: the launch floor
+its time is read against.
 """
 from __future__ import annotations
 
@@ -24,6 +26,12 @@ from repro_torch.kernels import build, ref
 plain_tile_quantize = ref.tile_quantize_ref
 
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+# weights of at least this many bytes load through 256-byte L2 fetches.
+# scripts/sweep_quantize.py times both loads in turns at qwen2.5-1.5b's
+# quantized shapes (K 1536; N 256, 1536, 8960): the wide ones are faster
+# at N 8960 (55 MB f32, 28 MB fp16 or bf16) and slower at N 1536 (9.4 MB
+# f32 and below), and this threshold picks the faster load at each
+WIDE_BYTES = 16 << 20
 
 
 def _lib() -> ctypes.CDLL:
@@ -31,8 +39,10 @@ def _lib() -> ctypes.CDLL:
     fn = lib.tile_quantize_launch
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [I, P, P, P, I, I, P]
+        fn.argtypes = [I, P, P, P, I, I, I, P]
         fn.restype = ctypes.c_int
+        lib.tile_quantize_empty_launch.argtypes = [I, I, I, P]
+        lib.tile_quantize_empty_launch.restype = ctypes.c_int
     return lib
 
 
@@ -52,6 +62,18 @@ def tile_quantize(w: torch.Tensor, *, group_size: int = 32):
     if group_size != 32:
         raise ValueError(f"the CUDA kernel takes group_size 32, got "
                          f"{group_size}")
+    return _launch(w, wide_loads(w))
+
+
+def wide_loads(w: torch.Tensor) -> bool:
+    """Whether the kernel loads ``w`` through 256-byte L2 fetches."""
+    return w.numel() * w.element_size() >= WIDE_BYTES
+
+
+def _launch(w: torch.Tensor, wide: bool):
+    """Launch the kernel, with 256-byte L2 fetches if ``wide``; the timing
+    sweep reaches the load the wrapper does not pick through here."""
+    K, N = w.shape
     if w.dtype not in _DTYPES or not w.is_contiguous() or w.data_ptr() % 16:
         raise ValueError(f"w: expected a contiguous, 16-byte aligned tensor "
                          f"of {list(_DTYPES)}, got {w.dtype}")
@@ -61,7 +83,7 @@ def tile_quantize(w: torch.Tensor, *, group_size: int = 32):
     with torch.cuda.device(w.device):
         err = _lib().tile_quantize_launch(
             _DTYPES[w.dtype], w.data_ptr(), codes.data_ptr(),
-            scales.data_ptr(), K, N,
+            scales.data_ptr(), K, N, int(wide),
             torch.cuda.current_stream(w.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"tile_quantize kernel launch failed with CUDA "
@@ -73,3 +95,16 @@ def tile_quantize(w: torch.Tensor, *, group_size: int = 32):
 
 tile_quantize.launches = 0
 tile_quantize.shapes = collections.Counter()
+
+
+def empty_launch(w: torch.Tensor) -> None:
+    """Launch an empty kernel on the grid :func:`tile_quantize` launches
+    for ``w`` (a CUDA tensor); counted nowhere."""
+    K, N = w.shape
+    with torch.cuda.device(w.device):
+        err = _lib().tile_quantize_empty_launch(
+            _DTYPES[w.dtype], K, N,
+            torch.cuda.current_stream(w.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed with CUDA error "
+                           f"{err}")

@@ -1,14 +1,21 @@
-"""Serving entry point of the port: continuous Best-of-N over the paged KV
-pool, on CUDA unless asked otherwise.
+"""Serving entry point of the port: test-time scaling (Best-of-N,
+self-consistency, PRM beam search) over the paged KV pool, on CUDA
+unless asked otherwise.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-1.5b \\
       --quantize --method best_of_n --budget 8 --tasks 4 \\
       --continuous --paged --kv-quant q8 [--prefix-cache --fewshot 3]
+  ... --method self_consistency --budget 8 --paged       (direct path)
+  ... --method beam_search --beam-width 2 --beam-expand 4 --beam-steps 4 \\
+      --step-tokens 8 --paged [--continuous]
 
-Weights are random, from a seeded generator (the repository ships no
-checkpoint).  ``--smoke`` selects the reduced config; ``--device cpu``
-runs the kernels' plain versions on the CPU.  The paged-attention exp
-mode comes from ``REPRO_TORCH_PAGED_ATTN`` (exact | lut).
+``--continuous`` serves Best-of-N and beam search through the slot
+scheduler; without it (and always for self-consistency) each task runs
+the direct path: one prefill, fork, generate.  Weights are random, from a
+seeded generator (the repository ships no checkpoint).  ``--smoke``
+selects the reduced config; ``--device cpu`` runs the kernels' plain
+versions on the CPU.  The paged-attention exp mode comes from
+``REPRO_TORCH_PAGED_ATTN`` (exact | lut).
 """
 from __future__ import annotations
 
@@ -34,25 +41,28 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--method", default="best_of_n", choices=["best_of_n"])
+    ap.add_argument("--method", default="best_of_n",
+                    choices=["best_of_n", "self_consistency", "beam_search"])
     ap.add_argument("--budget", type=int, default=8)
     ap.add_argument("--tasks", type=int, default=10)
     ap.add_argument("--max-tokens", type=int, default=48)
     ap.add_argument("--quantize", action="store_true",
                     help="apply tile-group W4A16 quantization (paper §5.1)")
     ap.add_argument("--continuous", action="store_true",
-                    help="serve through the slot-based continuous-batching "
-                         "scheduler (required: the port's only path)")
+                    help="serve best_of_n and beam_search through the "
+                         "slot-based continuous-batching scheduler (else "
+                         "the direct per-task path)")
     ap.add_argument("--slots", type=int, default=8,
                     help="decode slots for --continuous")
     ap.add_argument("--paged", action="store_true",
-                    help="back the decode slots with the paged KV block "
+                    help="back the decode rows with the paged KV block "
                          "pool (required: the port's only KV layout)")
     ap.add_argument("--block-size", type=int, default=16,
                     help="KV block size in tokens")
     ap.add_argument("--kv-blocks", type=int, default=0,
                     help="pool size in blocks (0 = auto: one full-length "
-                         "reservation per slot)")
+                         "reservation per row of the widest of the slots, "
+                         "the budget and the beam fan-out)")
     ap.add_argument("--kv-quant", default="none",
                     choices=["none", "q8", "q4"],
                     help="store pool blocks tile-quantized (Q8 int8 / Q4 "
@@ -67,6 +77,16 @@ def parse_args(argv=None):
                     help="prepend a shared header of N worked examples to "
                          "every task prompt (the cross-request common "
                          "prefix the cache exploits)")
+    ap.add_argument("--beam-width", type=int, default=0,
+                    help="surviving beams for --method beam_search "
+                         "(0 = budget // 2)")
+    ap.add_argument("--beam-expand", type=int, default=2,
+                    help="candidates per surviving beam per step")
+    ap.add_argument("--beam-steps", type=int, default=8,
+                    help="reasoning-step scoring boundaries before final "
+                         "selection")
+    ap.add_argument("--step-tokens", type=int, default=16,
+                    help="token budget per reasoning step")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the "
                          "kernels' plain versions)")
@@ -78,17 +98,33 @@ def parse_args(argv=None):
         args.tasks = min(args.tasks, 2)
         args.budget = min(args.budget, 4)
         args.max_tokens = min(args.max_tokens, 12)
-    if not (args.continuous and args.paged):
-        raise SystemExit("the port serves through --continuous --paged only")
+        args.beam_steps = min(args.beam_steps, 2)
+        args.step_tokens = min(args.step_tokens, 8)
+    if not args.paged:
+        raise SystemExit("the port serves from the paged KV pool only: pass "
+                         "--paged")
+    if args.prefix_cache and not args.continuous:
+        raise SystemExit("--prefix-cache requires --continuous (the cache "
+                         "is driven by the scheduler)")
     if MAX_LEN % args.block_size:
         raise SystemExit(f"--block-size must divide max_len={MAX_LEN}")
     return args
 
 
+def spec_of(args) -> TTSSpec:
+    return TTSSpec(method=args.method, budget=args.budget,
+                   max_tokens=args.max_tokens, beam_width=args.beam_width,
+                   beam_expand=args.beam_expand, beam_steps=args.beam_steps,
+                   step_tokens=args.step_tokens)
+
+
 def build_engine(args) -> tuple:
     """(engine, tokenizer) for parsed ``args``: random params from seed 0
     on the requested device, optionally W4A16-quantized, cast once to the
-    compute dtype."""
+    compute dtype.  The pool holds one full-length sequence per row of
+    the widest of the slots, the budget and the beam fan-out (the direct
+    path forks that many rows at once and has no preemption to fall back
+    on)."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     tok = ByteTokenizer()
@@ -99,7 +135,11 @@ def build_engine(args) -> tuple:
         params = quantize_model_params(params)
         print("[serve] weights quantized: tile-group Q4_0 + Q8_0 down-proj")
     params = cast_params(params, getattr(torch, cfg.dtype))
-    rows = max(args.slots, args.budget)
+    fan = 0
+    if args.method == "beam_search":
+        width, expand = spec_of(args).beam_shape()
+        fan = width * expand
+    rows = max(args.slots, args.budget, fan)
     n_blocks = args.kv_blocks or 1 + rows * (MAX_LEN // args.block_size)
     engine = DecodeEngine(params, cfg, max_len=MAX_LEN, eos_id=tok.eos_id,
                           pad_id=tok.pad_id, block_size=args.block_size,
@@ -112,7 +152,12 @@ def main(argv=None) -> list:
     args = parse_args(argv)
     engine, tok = build_engine(args)
     print(f"[serve] device={engine.device} arch={engine.cfg.name} "
-          f"kv_quant={args.kv_quant}")
+          f"kv_quant={args.kv_quant} method={args.method} "
+          f"path={'continuous' if args.continuous else 'direct'}")
+    if args.continuous and args.method == "self_consistency":
+        print("[serve] WARNING: --continuous serves best_of_n and "
+              "beam_search through the scheduler; self_consistency takes "
+              "the direct path")
     prefix_cache = None
     if args.prefix_cache:
         prefix_cache = PrefixCache(engine.pool)
@@ -121,11 +166,10 @@ def main(argv=None) -> list:
                                         n_shots=args.fewshot)
     else:
         tasks = T.gen_dataset(123, args.tasks)
-    spec = TTSSpec(method=args.method, budget=args.budget,
-                   max_tokens=args.max_tokens)
     gen = torch.Generator(device=engine.device)
     gen.manual_seed(0)
-    rows = sweep(engine, tok, tasks, [spec], gen, R.OracleVerifier(),
+    rows = sweep(engine, tok, tasks, [spec_of(args)], gen,
+                 R.OracleVerifier(), continuous=args.continuous,
                  n_slots=args.slots, prefix_cache=prefix_cache)
     # leak check: after a full drain the pool holds only the prefix
     # cache's pins
@@ -139,11 +183,13 @@ def main(argv=None) -> list:
     print(f"[serve] kv pool clean: {in_use} blocks in use after drain "
           f"({pinned} cache-pinned)")
     for r in rows:
-        s = r["serving"]
-        kv = s["kv"]
         print(f"[serve] {r['method']} budget={r['budget']} "
               f"accuracy={r['accuracy']:.3f} "
               f"decode_tokens={r['decode_tokens']}")
+        if "serving" not in r:
+            continue
+        s = r["serving"]
+        kv = s["kv"]
         print(f"[serve] continuous: slots={s['n_slots']} "
               f"occupancy={s['avg_slot_occupancy']:.2f} "
               f"requests_per_s={s['requests_per_s']:.2f} "
@@ -155,6 +201,13 @@ def main(argv=None) -> list:
               f"preemptions={s['preemptions']}")
         print(f"[serve] latency: step_time_p50={s['step_time_p50'] * 1e3:.1f}"
               f"ms step_time_p99={s['step_time_p99'] * 1e3:.1f}ms")
+        if s["beam_boundaries"]:
+            print(f"[serve] beam: boundaries={s['beam_boundaries']} "
+                  f"expansions={s['beam_expansions']} "
+                  f"prunes={s['beam_prunes']} "
+                  f"prm_batches={s['prm_batches']} "
+                  f"prm_candidates_per_batch="
+                  f"{s['prm_candidates_per_batch']:.1f}")
         if "prefix_cache" in s:
             pc = s["prefix_cache"]
             print(f"[serve] prefix cache: hit_rate={pc['hit_rate']:.2f} "

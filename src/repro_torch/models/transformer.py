@@ -123,8 +123,21 @@ def forward(params, tokens, cfg: ModelConfig, *,
             logit_positions: Optional[torch.Tensor] = None,
             return_kv: bool = False, prefix: Optional[dict] = None):
     """Full-sequence forward.  tokens: (B, S).  Returns (logits, kvs):
-    logits (B, S, V) f32, or (B, V) at ``logit_positions`` (B,); kvs the
-    per-layer rope'd (k, v) of shape (B, S, Hkv, D) when ``return_kv``.
+    logits (B, S, V) f32, or (B, V) at ``logit_positions`` (B,); kvs as
+    :func:`trunk` returns them."""
+    x, kvs = trunk(params, tokens, cfg, return_kv=return_kv, prefix=prefix)
+    if logit_positions is not None:
+        B = tokens.shape[0]
+        x = x[torch.arange(B, device=x.device), logit_positions.long()]
+    return L.lm_logits(_head(params, cfg), x, cfg.logit_softcap), kvs
+
+
+def trunk(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
+          prefix: Optional[dict] = None):
+    """The layers and final norm, without the LM head (the reward model
+    puts its own head on them).  tokens: (B, S).  Returns (x, kvs): x
+    (B, S, d_model) in ``cfg.dtype``; kvs the per-layer rope'd (k, v) of
+    shape (B, S, Hkv, D) when ``return_kv``.
 
     ``prefix``: a cached-prefix handle for partial prefill, {"k", "v":
     (L, B, P, Hkv, D) already-rope'd per-layer prefix KV, "len": (B,)
@@ -154,10 +167,7 @@ def forward(params, tokens, cfg: ModelConfig, *,
                        prefix_kv=pkv, prefix_positions=prefix_positions)
         if return_kv:
             kvs.append(kv)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    if logit_positions is not None:
-        x = x[torch.arange(B, device=x.device), logit_positions.long()]
-    return L.lm_logits(_head(params, cfg), x, cfg.logit_softcap), kvs
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), kvs
 
 
 def _scatter_prefill_blocks(pool, kv, table, block_size: int) -> None:

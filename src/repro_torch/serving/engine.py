@@ -10,7 +10,13 @@ treats batch as the first-class resource:
 * ``fork`` replicates rows so N samples share one prompt's prefill — on
   the paged pool a refcount bump, zero KV copied until copy-on-write
   splits a shared block at its first divergent write;
-* ``step`` samples one token per row and runs one decode step.
+* ``step`` samples one token per row and runs one decode step;
+  ``generate`` plans a whole horizon's blocks once and runs ``n_steps``
+  steps (the direct TTS path);
+* ``reorder`` gathers rows (beam-search survivors): a dropped row
+  releases its blocks, a row taken k times gains k - 1 references;
+  ``freeze_rows`` / ``resume_rows`` / ``resume`` stop and re-arm rows
+  without touching their blocks.
 
 The state carries ``pending_logits``, the logits the next token is
 sampled from, so no KV row is written twice and the first generated
@@ -34,7 +40,7 @@ import dataclasses
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -310,6 +316,52 @@ class DecodeEngine:
             pending_logits=rep(state.pending_logits), done=rep(state.done),
             logprob_sum=rep(state.logprob_sum), n_gen=rep(state.n_gen))
 
+    def reorder(self, state: GenState, idx) -> GenState:
+        """Gather rows by ``idx`` (beam-search survivor commit): the block
+        tables are gathered and refcounts fixed — rows ``idx`` drops
+        release their blocks, rows it takes k times gain k - 1 references
+        (their copies then diverge by copy-on-write)."""
+        idx_h = np.asarray(idx.cpu() if torch.is_tensor(idx) else idx,
+                           np.int64).ravel()
+        counts = np.bincount(idx_h, minlength=state.table.shape[0])
+        for r in range(state.table.shape[0]):
+            owned = state.table[r, :state.n_blocks[r]]
+            if counts[r] == 0:
+                self.pool.release(owned)
+            elif counts[r] > 1:
+                self.pool.retain(owned, times=int(counts[r]) - 1)
+        i = self._vec(idx_h, torch.long)
+        return GenState(
+            table=state.table[idx_h], n_blocks=state.n_blocks[idx_h],
+            cache_len=state.cache_len[i],
+            pending_logits=state.pending_logits[i], done=state.done[i],
+            logprob_sum=state.logprob_sum[i], n_gen=state.n_gen[i])
+
+    def resume(self, state: GenState) -> GenState:
+        """Clear every done flag (step-level beam search continues its
+        beams after a step-delimiter stop)."""
+        return dataclasses.replace(state,
+                                   done=torch.zeros_like(state.done))
+
+    def freeze_rows(self, state: GenState, rows) -> GenState:
+        """Mark ``rows`` done without freeing their blocks: they stop
+        advancing (writes routed to scratch, pending logits frozen) but
+        keep their KV.  The scheduler freezes beam lanes that exhaust a
+        step's token budget until the whole tree reaches its scoring
+        boundary; :meth:`resume_rows` re-arms them."""
+        return self._set_done(state, rows, True)
+
+    def resume_rows(self, state: GenState, rows) -> GenState:
+        """Clear the done flags of ``rows`` only (other rows, e.g. idle
+        scheduler slots, keep theirs)."""
+        return self._set_done(state, rows, False)
+
+    def _set_done(self, state: GenState, rows, value: bool) -> GenState:
+        done = state.done.clone()
+        done[self._vec(np.asarray(rows, np.int64).ravel(), torch.long)] = \
+            value
+        return dataclasses.replace(state, done=done)
+
     # -- paged block bookkeeping ---------------------------------------------
     def prepare_decode(self, state: GenState, n_steps: int = 1) -> GenState:
         """Host-side block planning before decoding ``n_steps`` tokens.
@@ -359,13 +411,22 @@ class DecodeEngine:
 
     # -- decode -------------------------------------------------------------
     def step(self, state: GenState, generator: Optional[torch.Generator],
-             sc: SamplerConfig = SamplerConfig(), stop_ids: tuple = ()):
+             sc: SamplerConfig = SamplerConfig(), stop_ids: tuple = (),
+             row_stops=None):
         """One decode step.  Returns (new_state, sampled tokens (B,)).
 
-        Runs :meth:`prepare_decode` first (may raise :class:`OutOfBlocks`),
-        then samples from the pending logits and scatters this step's KV
-        into the pool in place."""
+        ``row_stops`` (B,) adds one stop id per row on top of the shared
+        ``stop_ids`` (-1: none): the scheduler stops beam lanes at their
+        step delimiter while chat rows in the same batch decode through
+        it.  Runs :meth:`prepare_decode` first (may raise
+        :class:`OutOfBlocks`), then samples from the pending logits and
+        scatters this step's KV into the pool in place."""
         state = self.prepare_decode(state)
+        return self._step_core(state, generator, sc, stop_ids, row_stops)
+
+    def _step_core(self, state: GenState, generator, sc: SamplerConfig,
+                   stop_ids: tuple, row_stops=None):
+        """Sample, stop and decode one step over already planned blocks."""
         stop_ids = tuple(stop_ids) or (self.eos_id,)
         tok = sample(state.pending_logits, generator, sc)
         lp = logprobs_of(state.pending_logits, tok)
@@ -373,6 +434,8 @@ class DecodeEngine:
         new_done = state.done.clone()
         for s in stop_ids:
             new_done |= tok == s
+        if row_stops is not None:
+            new_done |= tok == self._vec(row_stops, torch.int32)
         new_len = torch.where(state.done, state.cache_len,
                               state.cache_len + 1)
         # done rows route their discarded write to position max_len - 1,
@@ -383,6 +446,8 @@ class DecodeEngine:
         logits = self.model.decode_step(self.params, tok[:, None],
                                         self._cache(state.table), model_len,
                                         self.cfg)
+        # done rows keep the logits that followed their stop token, so
+        # resume() continues from them
         pending = torch.where(state.done[:, None], state.pending_logits,
                               logits.float())
         return GenState(
@@ -393,10 +458,68 @@ class DecodeEngine:
                 state.done, torch.zeros_like(lp), lp),
             n_gen=state.n_gen + (~state.done).to(torch.int32)), tok
 
+    def generate(self, state: GenState, n_steps: int,
+                 generator: Optional[torch.Generator],
+                 sc: SamplerConfig = SamplerConfig(), stop_ids: tuple = ()):
+        """Decode ``n_steps`` tokens (each row stopping at any id in
+        ``stop_ids``, default EOS).  Returns (final state, (B, n_steps)
+        int32 tokens, pad_id after a row's stop).
+
+        Blocks for the whole horizon are planned (and shared tails
+        copy-on-written) once up front, as the JAX package does before its
+        scan, so the steps write in place with no per-step planning; rows
+        that stop early keep their surplus blocks until released."""
+        state = self.prepare_decode(state, n_steps)
+        toks = []
+        for _ in range(n_steps):
+            state, tok = self._step_core(state, generator, sc, stop_ids)
+            toks.append(tok)
+        if not toks:
+            return state, torch.zeros((state.done.shape[0], 0),
+                                      dtype=torch.int32, device=self.device)
+        return state, torch.stack(toks, dim=1)
+
 
 # ---------------------------------------------------------------------------
 # Continuous batching
 # ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class BeamSpec:
+    """Step-level tree search as a scheduler request class (paper §2.1).
+
+    A request carrying a ``BeamSpec`` occupies ``width * expand`` slots
+    ("lanes") that decode like any other rows of the batch.  A lane stops
+    at ``step_stop_id`` (the reasoning-step delimiter) or after
+    ``step_tokens`` tokens; once every lane has stopped the tree is at a
+    scoring boundary: ``score`` ranks all candidates in one batched call,
+    the top ``width`` survive, and one ``DecodeEngine.reorder`` commits
+    the prune and re-expansion (losing lanes' blocks free, each
+    survivor's blocks gain ``expand - 1`` references, no KV copied).
+    After ``max_steps`` boundaries (or ``finished`` true on the
+    survivors) ``final_score`` picks the answer and the request completes
+    with ``width`` samples.  The callbacks take token lists, so the
+    scheduler stays tokenizer-agnostic:
+
+    * ``score(token_lists, logprob_sum, n_gen) -> (n,) scores`` (required);
+    * ``final_score`` — final selection (defaults to ``score``);
+    * ``finished(token_lists) -> bool`` — early exit on the survivors.
+    """
+
+    width: int                   # surviving beams per boundary
+    expand: int                  # candidates per surviving beam
+    step_tokens: int = 16        # token budget per reasoning step
+    max_steps: int = 8           # scoring boundaries before final selection
+    step_stop_id: int = -1       # step delimiter token id (e.g. '.')
+    score: Optional[Callable] = None
+    final_score: Optional[Callable] = None
+    finished: Optional[Callable] = None
+
+    @property
+    def fan(self) -> int:
+        """Slots (lanes) the request occupies while decoding."""
+        return self.width * self.expand
 
 
 @dataclass
@@ -405,6 +528,7 @@ class Request:
     prompt: torch.Tensor         # (S,) int32
     max_new_tokens: int = 64
     n_samples: int = 1           # > 1: TTS fan-out sharing one prefill
+    search: Optional[BeamSpec] = None  # beam-search tree request class
 
 
 @dataclass
@@ -416,7 +540,7 @@ class CompletedSample:
     tokens: list                 # generated ids, stop token excluded
     logprob_sum: float           # cumulative sampled logprob
     n_gen: int                   # tokens sampled incl. any stop token
-    finish_reason: str           # "stop" | "length"
+    finish_reason: str           # "stop" | "length" | "beam"
     admitted_step: int
     first_decode_step: int
     finished_step: int
@@ -429,6 +553,25 @@ class _Slot:
     admitted_step: int
     tokens: list = field(default_factory=list)
     first_decode_step: int = -1
+
+
+@dataclass
+class _BeamRun:
+    """Host bookkeeping of one in-flight beam-search request.
+
+    ``rows`` are the ``fan`` slots the tree occupies for its lifetime
+    (boundary reorders move KV between them, never out of them).  Lane j
+    accumulates its candidate in ``tokens[j]`` (step-delimiter stops
+    included); ``step_gen`` / ``stopped`` track each lane's progress
+    toward the current scoring boundary."""
+
+    req: Request
+    spec: BeamSpec
+    rows: list
+    tokens: list                 # per-lane generated ids since admission
+    step_gen: list               # per-lane tokens sampled this beam step
+    stopped: list                # per-lane: reached delimiter or budget
+    beam_step: int = 0           # boundaries completed
 
 
 @dataclass
@@ -467,6 +610,15 @@ class SchedulerMetrics:
         self.kv_quant = "none"
         # one entry per admission prefill call: the requests it admitted
         self.admission_batch_sizes: list[int] = []
+        # beam search: a boundary is one prune + expand commit, which
+        # forks and releases fan - width lanes each; prm_batches counts
+        # batched score calls and prm_candidates the candidates they
+        # covered (per batch > 1: scoring rides the tree's fan)
+        self.beam_boundaries = 0
+        self.beam_expansions = 0
+        self.beam_prunes = 0
+        self.prm_batches = 0
+        self.prm_candidates = 0
 
     def record(self, rec: StepRecord):
         self.records.append(rec)
@@ -516,6 +668,14 @@ class SchedulerMetrics:
             "prefill_tokens_saved": self.prefill_tokens_saved,
             "peak_kv_bytes": self.peak_kv_bytes,
             "kv_quant": self.kv_quant,
+            "beam_boundaries": self.beam_boundaries,
+            "beam_expansions": self.beam_expansions,
+            "beam_prunes": self.beam_prunes,
+            "prm_batches": self.prm_batches,
+            "prm_candidates": self.prm_candidates,
+            "prm_candidates_per_batch": (self.prm_candidates
+                                         / self.prm_batches
+                                         if self.prm_batches else 0.0),
             "step_time_p50": percentile(step_ts, 50),
             "step_time_p99": percentile(step_ts, 99),
         }
@@ -529,12 +689,17 @@ class ContinuousScheduler:
 
     1. **Admit** — while free slots and pool blocks remain, runs of plain
        requests at the queue head share one batched prefill and are
-       scattered into free rows; a TTS request (``n_samples > 1``) does
-       one prefill and ``fork``\\ s into ``n_samples`` slots.
+       scattered into free rows; a TTS request (``n_samples > 1``) or a
+       beam tree (``search``) does one prefill and ``fork``\\ s into its
+       slots.
     2. **Decode** — one batched ``DecodeEngine.step`` over all rows (free
        rows are done and cost an idle lane).
     3. **Release** — a row that samples a stop id or reaches its
-       ``max_new_tokens`` frees its slot and blocks immediately.
+       ``max_new_tokens`` frees its slot and blocks immediately.  Beam
+       lanes stop at their step delimiter (per-row ``row_stops``) or are
+       frozen at their step budget; once a tree's lanes have all
+       stopped it is scored, pruned and re-expanded through one
+       ``reorder`` (or finished, releasing every lane).
 
     When a decode step cannot get its blocks (:class:`OutOfBlocks`), the
     youngest live request is preempted — slots released, blocks freed,
@@ -574,6 +739,8 @@ class ContinuousScheduler:
         self.step_count = 0
         self.completed: dict[int, list[CompletedSample]] = {}
         self._n_samples: dict[int, int] = {}
+        self._beams: dict[int, _BeamRun] = {}    # req_id -> in-flight tree
+        self.beam_results: dict[int, dict] = {}  # req_id -> final selection
         self.metrics = SchedulerMetrics(n_slots)
         self.metrics.kv_quant = engine.pool.mode
         self._block_bytes = engine.pool.block_bytes()
@@ -582,7 +749,30 @@ class ContinuousScheduler:
     def submit(self, req: Request):
         if req.req_id in self._n_samples:
             raise ValueError(f"request id {req.req_id} already submitted")
-        if req.max_new_tokens < 1:
+        if req.search is not None:
+            spec = req.search
+            if req.n_samples != 1:
+                raise ValueError(
+                    f"request {req.req_id}: search and n_samples > 1 are "
+                    f"mutually exclusive (the tree owns its fan-out)")
+            if min(spec.width, spec.expand, spec.step_tokens,
+                   spec.max_steps) < 1:
+                raise ValueError(
+                    f"request {req.req_id}: BeamSpec width/expand/"
+                    f"step_tokens/max_steps must all be >= 1")
+            if spec.score is None:
+                raise ValueError(
+                    f"request {req.req_id}: BeamSpec.score is required "
+                    f"(batched candidate scoring callback)")
+            if spec.step_stop_id < 0:
+                raise ValueError(
+                    f"request {req.req_id}: BeamSpec.step_stop_id must be "
+                    f"a valid token id (the reasoning-step delimiter)")
+            if spec.fan > self.n_slots:
+                raise ValueError(
+                    f"request {req.req_id}: beam fan-out width*expand="
+                    f"{spec.fan} exceeds n_slots={self.n_slots}")
+        elif req.max_new_tokens < 1:
             raise ValueError(f"request {req.req_id}: max_new_tokens must be "
                              f">= 1, got {req.max_new_tokens}")
         if req.n_samples > self.n_slots:
@@ -592,20 +782,39 @@ class ContinuousScheduler:
         if plen > self.prompt_len:
             raise ValueError(f"request {req.req_id}: prompt length {plen} "
                              f"exceeds prompt_len={self.prompt_len}")
-        budget = plen + req.max_new_tokens
+        budget = plen + self._max_new(req)
         if budget > self.engine.max_len - 1:
             raise ValueError(
-                f"request {req.req_id}: prompt ({plen}) + new tokens "
-                f"({req.max_new_tokens}) = {budget} exceeds engine max_len "
-                f"- 1 = {self.engine.max_len - 1}")
+                f"request {req.req_id}: prompt ({plen}) + worst-case new "
+                f"tokens ({self._max_new(req)}) = {budget} exceeds engine "
+                f"max_len - 1 = {self.engine.max_len - 1}")
         worst = self._worst_case_blocks(req)
         if worst > self.engine.pool.capacity:
             raise ValueError(
                 f"request {req.req_id}: worst-case KV footprint ({worst} "
                 f"blocks) exceeds pool capacity "
                 f"({self.engine.pool.capacity} blocks)")
-        self._n_samples[req.req_id] = max(1, req.n_samples)
+        self._n_samples[req.req_id] = (req.search.width if req.search
+                                       else max(1, req.n_samples))
         self.queue.append(req)
+
+    @staticmethod
+    def _fan(req: Request) -> int:
+        """Slots the request occupies: beam fan-out, TTS samples, or 1."""
+        return req.search.fan if req.search is not None \
+            else max(1, req.n_samples)
+
+    @staticmethod
+    def _max_new(req: Request) -> int:
+        """Worst-case tokens one of the request's rows can generate."""
+        if req.search is not None:
+            return req.search.max_steps * req.search.step_tokens
+        return req.max_new_tokens
+
+    @staticmethod
+    def _is_group(req: Request) -> bool:
+        """Admitted by one prefill and a fork: a TTS group or a tree."""
+        return req.n_samples > 1 or req.search is not None
 
     def _worst_case_blocks(self, req: Request) -> int:
         """Blocks the request needs alone at full divergence: shared full
@@ -613,8 +822,8 @@ class ContinuousScheduler:
         bs = self.engine.pool.block_size
         plen = int(req.prompt.shape[0])
         shared = plen // bs
-        per_sample = blocks_for(plen + req.max_new_tokens, bs) - shared
-        return shared + max(1, req.n_samples) * per_sample
+        per_sample = blocks_for(plen + self._max_new(req), bs) - shared
+        return shared + self._fan(req) * per_sample
 
     def _pad(self, prompt):
         out = torch.full((self.prompt_len,), self.engine.pad_id,
@@ -650,9 +859,10 @@ class ContinuousScheduler:
         return sum(n for _, n in padded)
 
     def _admit_group(self, req: Request, free: list) -> int:
-        """TTS group: one batch-1 prefill forked into ``n_samples`` slots
-        sharing the prompt's blocks until their first divergent write."""
-        n = max(1, req.n_samples)
+        """TTS group or beam tree: one batch-1 prefill forked into
+        ``_fan(req)`` slots sharing the prompt's blocks until their first
+        divergent write."""
+        n = self._fan(req)
         toks, length = self._pad(req.prompt)
         st = self.engine.prefill(toks[None],
                                  torch.tensor([length], dtype=torch.int32))
@@ -664,7 +874,16 @@ class ContinuousScheduler:
         for j, r in enumerate(rows):
             self.slots[r] = _Slot(req=req, sample_idx=j,
                                   admitted_step=self.step_count)
+        if req.search is not None:
+            self._start_beam(req, rows)
         return length
+
+    def _start_beam(self, req: Request, rows: list) -> None:
+        n = len(rows)
+        self._beams[req.req_id] = _BeamRun(
+            req=req, spec=req.search, rows=list(rows),
+            tokens=[[] for _ in range(n)], step_gen=[0] * n,
+            stopped=[False] * n)
 
     # -- cache-aware admission -----------------------------------------------
     def _insert_prompt(self, toks: list, table_row) -> None:
@@ -707,9 +926,9 @@ class ContinuousScheduler:
             self.metrics.prefill_tokens_saved += clen
 
     def _admit_cached_group(self, req: Request, free: list) -> int:
-        """Cache-aware admission of one TTS group: match, lease, one
-        partial prefill of the uncached suffix, insert the prompt's full
-        blocks, fork into ``n_samples`` slots.  Returns the suffix tokens
+        """Cache-aware admission of one TTS group or beam tree: match,
+        lease, one partial prefill of the uncached suffix, insert the
+        prompt's full blocks, fork into ``_fan(req)`` slots.  Returns the suffix tokens
         prefilled, or -1 when the pool cannot cover the group's new blocks
         even after eviction (the head then waits, holding no lease)."""
         toks = self._host_prompt(req)
@@ -727,7 +946,7 @@ class ContinuousScheduler:
         self._count_prefill(1)
         self._count_lookup(clen)
         self._insert_prompt(toks, st.table[0])
-        n = max(1, req.n_samples)
+        n = self._fan(req)
         if n > 1:
             st = self.engine.fork(st, n)
         rows = [free.pop(0) for _ in range(n)]
@@ -735,6 +954,8 @@ class ContinuousScheduler:
         for j, r in enumerate(rows):
             self.slots[r] = _Slot(req=req, sample_idx=j,
                                   admitted_step=self.step_count)
+        if req.search is not None:
+            self._start_beam(req, rows)
         return len(suffix)
 
     def _collect_cached_run(self, free: list) -> list:
@@ -751,7 +972,7 @@ class ContinuousScheduler:
         bs = self.engine.pool.block_size
         entries: list[dict] = []
         pending = 0  # new blocks already promised to earlier entries
-        while (self.queue and self.queue[0].n_samples <= 1
+        while (self.queue and not self._is_group(self.queue[0])
                and len(entries) < len(free)):
             req = self.queue[0]
             toks = self._host_prompt(req)
@@ -806,9 +1027,9 @@ class ContinuousScheduler:
         admitted = prefill_tokens = 0
         while self.queue and free:
             head = self.queue[0]
-            if max(1, head.n_samples) > len(free):
+            if self._fan(head) > len(free):
                 break  # FIFO: the group waits for enough free slots
-            if head.n_samples > 1:
+            if self._is_group(head):
                 got = self._admit_cached_group(head, free)
                 if got < 0:
                     break  # FIFO: the head waits for blocks
@@ -836,18 +1057,18 @@ class ContinuousScheduler:
         blk_budget = self.engine.pool.free_blocks
         while self.queue and free:
             head = self.queue[0]
-            if max(1, head.n_samples) > len(free):
+            if self._fan(head) > len(free):
                 break  # FIFO: the group waits for enough free slots
             if self._prompt_blocks(head) > blk_budget:
                 break  # FIFO: the head waits for blocks to free up
-            if head.n_samples > 1:
+            if self._is_group(head):
                 req = self.queue.popleft()
                 blk_budget -= self._prompt_blocks(req)
                 prefill_tokens += self._admit_group(req, free)
                 admitted += 1
                 continue
             plain = []
-            while (self.queue and self.queue[0].n_samples <= 1
+            while (self.queue and not self._is_group(self.queue[0])
                    and len(plain) < len(free)):
                 need = self._prompt_blocks(self.queue[0])
                 if need > blk_budget:
@@ -895,11 +1116,125 @@ class ContinuousScheduler:
         self.state = self.engine.release_rows(self.state, rows)
         for r in rows:
             self.slots[r] = None
-        # the rerun regenerates every sample (deterministic under greedy)
+        # the rerun regenerates every sample (deterministic under greedy);
+        # a tree drops its in-flight search the same way and restarts it
+        # from the prompt
+        self._beams.pop(victim, None)
         dropped = self.completed.pop(victim, [])
         self.metrics.completed_samples -= len(dropped)
         self.queue.appendleft(req)
         self.metrics.preemptions += 1
+
+    # -- beam-search trees ---------------------------------------------------
+    def _row_stops(self):
+        """Per-row extra stop ids of a decode step: each tree's lanes stop
+        at its step delimiter, every other row gets -1 (none); None when
+        no tree is in flight."""
+        if not self._beams:
+            return None
+        stops = np.full((self.n_slots,), -1, np.int32)
+        for run in self._beams.values():
+            stops[run.rows] = run.spec.step_stop_id
+        return stops
+
+    def _beam_track(self, toks_h, done_h) -> tuple:
+        """Advance every tree's host bookkeeping after a decode step.
+        Returns (rows to freeze, runs at their scoring boundary): a lane
+        that exhausts its step budget without sampling the delimiter is
+        frozen (done on the device, blocks kept) while its siblings finish
+        their step."""
+        to_freeze: list = []
+        boundaries: list = []
+        for run in self._beams.values():
+            for j, r in enumerate(run.rows):
+                if run.stopped[j]:
+                    continue
+                run.tokens[j].append(int(toks_h[r]))
+                run.step_gen[j] += 1
+                if bool(done_h[r]):      # sampled the delimiter or a stop
+                    run.stopped[j] = True
+                elif run.step_gen[j] >= run.spec.step_tokens:
+                    run.stopped[j] = True
+                    to_freeze.append(r)
+            if all(run.stopped):
+                boundaries.append(run)
+        return to_freeze, boundaries
+
+    def _beam_boundary(self, run: _BeamRun) -> None:
+        """Scoring boundary: one batched score call over all fan
+        candidates, then final selection or a prune + expand commit.
+
+        The commit is one ``engine.reorder`` whose index is the identity
+        outside the tree's rows and maps lane j to survivor ``keep[j //
+        expand]`` inside them, so the pool's refcount fix-up is the tree
+        update: losing lanes' blocks free, each survivor's blocks gain
+        ``expand - 1`` references and later diverge by copy-on-write."""
+        spec, rows = run.spec, run.rows
+        lp = self.state.logprob_sum.cpu().numpy()
+        ng = self.state.n_gen.cpu().numpy()
+        scores = np.asarray(
+            spec.score([list(t) for t in run.tokens], lp[rows], ng[rows]),
+            np.float64).ravel()
+        self.metrics.prm_batches += 1
+        self.metrics.prm_candidates += len(rows)
+        # stable: ties keep the lowest lane, as the direct path's argsort
+        keep = np.argsort(-scores, kind="stable")[:spec.width]
+        run.beam_step += 1
+        self.metrics.beam_boundaries += 1
+        survivors = [list(run.tokens[int(k)]) for k in keep]
+        if run.beam_step >= spec.max_steps or (
+                spec.finished is not None and spec.finished(survivors)):
+            self._finish_beam(run, keep, survivors, lp, ng)
+            return
+        idx = np.arange(self.n_slots, dtype=np.int64)
+        for j in range(len(rows)):
+            idx[rows[j]] = rows[int(keep[j // spec.expand])]
+        self.state = self.engine.reorder(self.state, idx)
+        self.metrics.beam_expansions += len(rows) - spec.width
+        self.metrics.beam_prunes += len(rows) - spec.width
+        run.tokens = [list(survivors[j // spec.expand])
+                      for j in range(len(rows))]
+        run.step_gen = [0] * len(rows)
+        run.stopped = [False] * len(rows)
+        self.state = self.engine.resume_rows(self.state, rows)
+
+    def _finish_beam(self, run: _BeamRun, keep, survivors, lp, ng) -> None:
+        """Final selection: score the ``width`` survivors, record the
+        choice in ``beam_results``, emit one ``CompletedSample`` per
+        survivor and release every lane's blocks."""
+        spec, rows, req = run.spec, run.rows, run.req
+        final = spec.final_score or spec.score
+        krows = [rows[int(k)] for k in keep]
+        final_scores = np.asarray(final(survivors, lp[krows], ng[krows]),
+                                  np.float64).ravel()
+        self.metrics.prm_batches += 1
+        self.metrics.prm_candidates += len(survivors)
+        if self.cache is not None:
+            # the tree's full prompt blocks sit below every lane's write
+            # frontier (never copy-on-written): reusable by later requests
+            self._insert_prompt(self._host_prompt(req),
+                                self.state.table[rows[0]])
+        first = self.slots[rows[0]]
+        self.state = self.engine.release_rows(self.state, rows)
+        done_list = self.completed.setdefault(req.req_id, [])
+        for j, k in enumerate(keep):
+            r = rows[int(k)]
+            done_list.append(CompletedSample(
+                req_id=req.req_id, sample_idx=j, tokens=list(survivors[j]),
+                logprob_sum=float(lp[r]), n_gen=int(ng[r]),
+                finish_reason="beam", admitted_step=first.admitted_step,
+                first_decode_step=first.first_decode_step,
+                finished_step=self.step_count))
+        self.beam_results[req.req_id] = {
+            "scores": [float(x) for x in final_scores],
+            "chosen": int(np.argmax(final_scores)),
+            "beam_steps": run.beam_step,
+        }
+        self.metrics.completed_samples += len(survivors)
+        self.metrics.completed_requests += 1
+        for r in rows:
+            self.slots[r] = None
+        del self._beams[req.req_id]
 
     # -- the step loop -------------------------------------------------------
     def step_once(self, generator: Optional[torch.Generator],
@@ -918,7 +1253,8 @@ class ContinuousScheduler:
         while True:
             try:
                 self.state, toks = self.engine.step(
-                    self.state, generator, sc, stop_ids=self.stop_ids)
+                    self.state, generator, sc, stop_ids=self.stop_ids,
+                    row_stops=self._row_stops())
                 break
             except OutOfBlocks:
                 # atomic: the failed plan touched neither pool nor state
@@ -931,6 +1267,8 @@ class ContinuousScheduler:
         released = []
         for i in live:
             slot = self.slots[i]
+            if slot.req.search is not None:
+                continue  # beam lanes: tracked per tree below
             if bool(done_h[i]):          # sampled a stop id (excluded)
                 self._release(i, "stop", float(lp_h[i]), int(ng_h[i]))
                 released.append((i, slot.req))
@@ -953,6 +1291,12 @@ class ContinuousScheduler:
         if released:
             self.state = self.engine.release_rows(
                 self.state, [r for r, _ in released])
+        if self._beams:
+            to_freeze, boundaries = self._beam_track(toks_h, done_h)
+            if to_freeze:
+                self.state = self.engine.freeze_rows(self.state, to_freeze)
+            for run in boundaries:
+                self._beam_boundary(run)
         self.metrics.peak_kv_bytes = max(
             self.metrics.peak_kv_bytes,
             self.engine.pool.peak_in_use * self._block_bytes)

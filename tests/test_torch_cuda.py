@@ -298,6 +298,51 @@ def test_cuda_tile_quantize_matches_plain_bitwise(cuda, dtype, kn):
     assert TQ.infer_scheme(leaf) == "tile" and leaf["codebook"].is_cuda
 
 
+def _quantize_case(K, N, dtype, seed):
+    """Random weights with an all-zero group and, where K >= 4 and N >=
+    16, a group on exact half steps of its scale (round half to even)."""
+    w = torch.randn((K, N), generator=torch.Generator().manual_seed(seed))
+    w = w * 0.2
+    w[0:2, N - 16:N] = 0.0
+    if K >= 4:
+        ties = torch.tensor([0.5, 1.5, 2.5, 3.5, -0.5, -1.5, -2.5, -6.5,
+                             6.5, 7.5, -7.5, 8.0, -8.0, 4.5, -4.5, 5.5])
+        w[K - 2, 0:16], w[K - 1, 0:16] = ties, -ties
+    return w.to(dtype)
+
+
+# shapes that do not fill the kernel's tiling: one warp holding several
+# row pairs (N 32), a row pair ending mid-warp (N 288), a single row pair
+# (K 2), a grid with a ragged last block (K 1538); each with either load
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("kn", [(64, 32), (130, 288), (2, 256), (1538, 96),
+                                (2, 32)])
+@pytest.mark.parametrize("wide", [False, True])
+def test_cuda_tile_quantize_edges_match_plain_bitwise(cuda, dtype, kn, wide):
+    K, N = kn
+    w = _quantize_case(K, N, dtype, seed=K + N)
+    want = K6.tile_quantize(w)
+    got = K6._launch(w.to(cuda), wide)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.gpu
+def test_cuda_tile_quantize_launch_floor_counts_nowhere(cuda):
+    """The empty kernel launches on the quantize kernel's grid and is not
+    a launch of the kernel; the wide loads start at 16 MiB of weight."""
+    assert not K6.wide_loads(torch.empty((1536, 1536), device=cuda))
+    assert K6.wide_loads(torch.empty((1536, 8960), device=cuda))
+    w = torch.zeros((1536, 256), device=cuda)
+    before = K6.tile_quantize.launches
+    K6.empty_launch(w)
+    torch.cuda.synchronize()
+    assert K6.tile_quantize.launches == before
+
+
 @pytest.mark.gpu
 def test_cuda_tile_quantize_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="group_size 32"):
