@@ -34,15 +34,23 @@ Phases, one JSON line each:
    self-consistency (Best-of-8, 32 tokens, 2 tasks) through the direct
    path, and PRM beam search (width 2 x expand 4, 4 boundaries of 8
    tokens, 2 tasks) through the scheduler's beam request class and
-   through the direct path.  Every request must complete, the pool must
+   through the direct path; then speculative decoding on Q8 KV, exact
+   softmax, greedy continuous Best-of-8 over 4 tasks x 48 tokens: plain
+   (``spec/base``), k = 4 self-drafting (``spec/self``) and k = 4 with the
+   registry's dense draft model (``spec/draft``), whose greedy tokens are
+   held against spec/base's (``spec_parity``: a row may leave them only at
+   a near-tie, the base run's logit gap there at most ``SPEC_GAP``).
+   Every request must complete, the pool must
    drain to the cache's pinned blocks, and each run must launch its
-   kernels exactly as often as its decode steps and prefills require
-   (counters reset just before each run, read just after).  Both routes
+   kernels exactly as often as its decode steps, prefills and
+   speculative verifies require (counters reset just before each run,
+   read just after; a verify launches K3 at M = slots x W and K4 twice).  Both routes
    are measured alike: ``decode_tokens`` counts the rows each decode step
-   advances (frozen beam lanes and idle slots not), ``decode_tok_per_s``
-   divides it by the wall time from the engine's build to the serve's
-   end, and a step's time (p50, p99) is ``DecodeEngine._step_core``
-   ended by a synchronize.  The memory peak is reset once the engine is
+   advances (frozen beam lanes and idle slots not) and the tokens each
+   speculative round commits, ``decode_tok_per_s`` divides it by the
+   wall time from the engine's build to the serve's end, and a step's
+   time (p50, p99) is ``DecodeEngine._step_core``, or a whole
+   speculative round, ended by a synchronize.  The memory peak is reset once the engine is
    built: ``peak_device_bytes`` is the serving peak,
    ``load_peak_device_bytes`` the weights' init, beside the pool's own
    ``peak_kv_bytes``;
@@ -823,7 +831,7 @@ def reference_check() -> None:
     clens = [16, 11]
 
     def partial(params, kv_quant):
-        eng = DecodeEngine(params, cfg, max_len=64, block_size=bs,
+        eng = DecodeEngine(params, cfg, max_len=64, paged=True, block_size=bs,
                            n_blocks=1 + 4 * W, kv_quant=kv_quant)
         full = eng.prefill(prompts)
         ctab = np.zeros((2, eng.table_width), np.int32)
@@ -885,6 +893,86 @@ SERVE_PATHS["sc/direct"] = ("q8", "exact", BASE_ARGS + [
 SERVE_PATHS["beam/sched"] = ("q8", "exact",
                              BASE_ARGS + BEAM_ARGS + ["--continuous"], 2, 2)
 SERVE_PATHS["beam/direct"] = ("q8", "exact", BASE_ARGS + BEAM_ARGS, 2, 2)
+# speculative decoding on Q8 KV, exact softmax, continuous Best-of-8 over
+# 4 tasks x 48 tokens, all greedy: the plain scheduler (through
+# controller.sweep with a greedy sampler: serve.py forces greedy only
+# under --spec-k), then k = 4 self-drafting and k = 4 with the registry's
+# dense draft model
+SPEC_PATHS = ("spec/base", "spec/self", "spec/draft")
+SERVE_PATHS["spec/base"] = ("q8", "exact", SERVE_ARGS + ["--kv-quant", "q8"],
+                            4, 8)
+SERVE_PATHS["spec/self"] = ("q8", "exact", SERVE_ARGS + [
+    "--kv-quant", "q8", "--spec-k", "4", "--self-draft"], 4, 8)
+SERVE_PATHS["spec/draft"] = ("q8", "exact", SERVE_ARGS + [
+    "--kv-quant", "q8", "--spec-k", "4", "--draft-model", "qwen2.5-1.5b"],
+    4, 8)
+# the largest logit gap, in the spec/base run, between the token it chose
+# and the token a speculative path chose at a row's first divergence: a
+# near-tie flipped by the verify's other arithmetic (chunked attention
+# over the K4-dequantized prefix, K3 at M = 8 W) lies far below it
+SPEC_GAP = 0.1
+TOPK = 16  # base-run logits kept per row and step for the gap
+
+
+def greedy_serve(argv: list) -> list:
+    """``serve.main``'s continuous path with a greedy sampler and no
+    speculation (the spec/base path): build the engine, sweep, check the
+    pool drained.  Returns the sweep's rows."""
+    import torch
+
+    from repro_torch.core import reward as R
+    from repro_torch.core.controller import sweep
+    from repro_torch.data import tasks as T
+    from repro_torch.launch import serve
+    from repro_torch.serving.sampler import SamplerConfig
+
+    args = serve.parse_args(argv)
+    engine, tok = serve.build_engine(args)
+    gen = torch.Generator(device=engine.device).manual_seed(0)
+    rows = sweep(engine, tok, T.gen_dataset(123, args.tasks),
+                 [serve.spec_of(args)], gen, R.OracleVerifier(),
+                 continuous=True, n_slots=args.slots,
+                 sc=SamplerConfig(greedy=True))
+    if engine.pool.blocks_in_use:
+        raise AssertionError(f"spec/base: {engine.pool.blocks_in_use} "
+                             f"blocks in use after drain")
+    return rows
+
+
+def spec_parity(spec: dict, eos_id: int) -> None:
+    """Hold each speculative path's greedy tokens against spec/base's: the
+    share of identical rows, and at each row's first divergence the base
+    run's logit gap between its token and the path's (from the base run's
+    top-``TOPK`` logits of that row and position).  Fails if a gap exceeds
+    ``SPEC_GAP`` or the path's token is not among the base's top
+    ``TOPK``."""
+    base = spec["spec/base"]
+    for path in ("spec/self", "spec/draft"):
+        got = spec[path]["tokens"]
+        same, divs = 0, []
+        for key, want in sorted(base["tokens"].items()):
+            have = got[key]
+            if have == want:
+                same += 1
+                continue
+            p = next((i for i, (a, b) in enumerate(zip(want, have))
+                      if a != b), min(len(want), len(have)))
+            a = want[p] if p < len(want) else eos_id
+            b = have[p] if p < len(have) else eos_id
+            vals, idx = base["top"][key + (p,)]
+            gap = None
+            if b in idx:
+                gap = vals[idx.index(a)] - vals[idx.index(b)]
+            divs.append({"req": key[0], "sample": key[1], "pos": p,
+                         "base_token": a, "spec_token": b, "base_gap": gap})
+        emit("spec_parity", path=path, rows=len(base["tokens"]),
+             identical_rows=same, share=same / len(base["tokens"]),
+             divergences=divs, bound=SPEC_GAP)
+        bad = [d for d in divs if d["base_gap"] is None
+               or d["base_gap"] > SPEC_GAP]
+        if bad:
+            raise AssertionError(f"{path}: diverges from spec/base beyond a "
+                                 f"near-tie (gap > {SPEC_GAP}): {bad}")
 
 
 def serve_runs(n_layers: int = 28) -> dict:
@@ -902,8 +990,16 @@ def serve_runs(n_layers: int = 28) -> dict:
     The CUDA memory peak is reset once ``serve.build_engine`` returns, so
     ``peak_device_bytes`` covers serving and ``load_peak_device_bytes``
     the weights' random init and quantization.
-    Returns {path: {"counts": {wrapper: n}, "shapes": {(M, K, N): n},
-    "kv_shapes": {(mode, R): n}}}."""
+
+    Speculative paths: a round is ``ContinuousScheduler._spec_step``,
+    timed to its end by a synchronize, its committed tokens the verify's
+    (``DecodeEngine.spec_verify``, wrapped to record each round's B, W
+    and prefix width); the target's snapshot steps inside a self-draft
+    round count as draft steps, not decode steps, and the dense drafter's
+    steps are counted apart (they launch no kernel).  The spec/base run
+    keeps each row's top-``TOPK`` logits per step for ``spec_parity``.
+    Returns ({path: {"counts": {wrapper: n}, "shapes": {(M, K, N): n},
+    "kv_shapes": {(mode, R): n}}}, {spec path: {"tokens", "top"}})."""
     import numpy as np
     import torch
 
@@ -912,14 +1008,17 @@ def serve_runs(n_layers: int = 28) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import layers as L
-    from repro_torch.serving.engine import DecodeEngine
+    from repro_torch.serving.engine import ContinuousScheduler, DecodeEngine
 
-    runs = {}
+    runs, spec = {}, {}
     orig_prefill = DecodeEngine.prefill
     orig_step = DecodeEngine._step_core
     orig_build = serve.build_engine
     orig_reorder = DecodeEngine.reorder
     orig_run = controller.run_method
+    orig_verify = DecodeEngine.spec_verify
+    orig_round = ContinuousScheduler._spec_step
+    orig_sched_run = ContinuousScheduler.run
     for path, (kv_quant, impl, args, n_req, n_samp) in SERVE_PATHS.items():
         prefills = []  # (batch, padded width, partial?) per engine prefill
         steps = []     # (rows, seconds to the step's end) per decode step
@@ -927,20 +1026,63 @@ def serve_runs(n_layers: int = 28) -> dict:
         reorders = [0]
         tasks = []     # (TTSResult, reorders) per direct-route task
         built = {}
+        verifies = []  # (B, W, prefix width) per spec_verify
+        rounds = []    # (committed tokens, seconds to the end) per round
+        draft_steps = []   # rows of each target step inside a round
+        drafter_steps = [0]  # the dense drafter's decode steps
+        in_round = [False]
+        scheds = []
+        top = []       # spec/base: (rows' keys, top values, top ids)
 
         def recording(self, tokens, lengths=None, **kw):
-            prefills.append((*tokens.shape, kw.get("cached_table")
-                             is not None))
+            if self is built.get("engine"):  # not the dense drafter's
+                prefills.append((*tokens.shape, kw.get("cached_table")
+                                 is not None))
             return orig_prefill(self, tokens, lengths, **kw)
 
         def stepping(self, state, *a, **kw):
+            if self is not built.get("engine"):
+                drafter_steps[0] += 1
+                return orig_step(self, state, *a, **kw)
+            if in_round[0]:
+                draft_steps.append(int(state.done.shape[0]))
+                return orig_step(self, state, *a, **kw)
             t0 = time.perf_counter()
             out = orig_step(self, state, *a, **kw)
             torch.cuda.synchronize()
             steps.append((int(state.done.shape[0]),
                           time.perf_counter() - t0))
             live.append((~state.done).sum())
+            if path == "spec/base":
+                t = torch.topk(state.pending_logits, TOPK, dim=-1)
+                keys = {i: (s.req.req_id, s.sample_idx, len(s.tokens))
+                        for i, s in enumerate(scheds[-1].slots)
+                        if s is not None}
+                top.append((keys, t.values, t.indices))
             return out
+
+        def verifying(self, state, xs, *a, **kw):
+            clen = state.cache_len[~state.done]
+            pw = max(1, -(-int(clen.max()) // self.pool.block_size)) \
+                if clen.numel() else 1
+            verifies.append((*np.asarray(xs).shape, pw))
+            return orig_verify(self, state, xs, *a, **kw)
+
+        def round_(self, *a, **kw):
+            in_round[0] = True
+            t0 = time.perf_counter()
+            try:
+                out = orig_round(self, *a, **kw)
+            finally:
+                in_round[0] = False
+            torch.cuda.synchronize()
+            if out is not None:
+                rounds.append((int(out[1].sum()), time.perf_counter() - t0))
+            return out
+
+        def sched_running(self, *a, **kw):
+            scheds.append(self)
+            return orig_sched_run(self, *a, **kw)
 
         def reordering(self, *a, **kw):
             reorders[0] += 1
@@ -965,6 +1107,9 @@ def serve_runs(n_layers: int = 28) -> dict:
         DecodeEngine.prefill = recording
         DecodeEngine._step_core = stepping
         DecodeEngine.reorder = reordering
+        DecodeEngine.spec_verify = verifying
+        ContinuousScheduler._spec_step = round_
+        ContinuousScheduler.run = sched_running
         controller.run_method = running
         serve.build_engine = building
         try:
@@ -972,7 +1117,7 @@ def serve_runs(n_layers: int = 28) -> dict:
             torch.cuda.reset_peak_memory_stats()
             ops.reset_launch_counts()
             t0 = time.perf_counter()
-            rows = serve.main(args)
+            rows = (greedy_serve if path == "spec/base" else serve.main)(args)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             counts = ops.launch_counts()
@@ -983,6 +1128,9 @@ def serve_runs(n_layers: int = 28) -> dict:
             DecodeEngine.prefill = orig_prefill
             DecodeEngine._step_core = orig_step
             DecodeEngine.reorder = orig_reorder
+            DecodeEngine.spec_verify = orig_verify
+            ContinuousScheduler._spec_step = orig_round
+            ContinuousScheduler.run = orig_sched_run
             controller.run_method = orig_run
             serve.build_engine = orig_build
             L.set_paged_attention_impl(prev)
@@ -1003,7 +1151,8 @@ def serve_runs(n_layers: int = 28) -> dict:
         if s is not None:
             done_ok = (s["completed_requests"] == n_req
                        and s["completed_samples"] == n_req * n_samp
-                       and len(steps) == s["steps"]
+                       and len(steps) + len(rounds) == s["steps"]
+                       and len(rounds) == len(verifies) == s["spec_rounds"]
                        and len(prefills) == s["prefill_calls"]
                        and (not beam or s["beam_boundaries"] >= n_req))
         else:
@@ -1020,31 +1169,65 @@ def serve_runs(n_layers: int = 28) -> dict:
         if "--prefix-cache" in args and (s["prefix_cache_hits"] < 1
                                          or partial < 1):
             raise AssertionError(f"serve {path}: no prefix-cache hit")
-        # one attention launch per layer per decode step; two Q4
-        # projections per layer at each (K, N) per decode step (M = the
-        # step's rows: the slots, or the direct path's batch) and per
-        # prefill (M = batch x padded width); two KV dequant launches (K
-        # and V) per partial prefill
+        if path in SPEC_PATHS[1:] and not rounds:
+            raise AssertionError(f"serve {path}: no speculative round")
+        # a self-draft round runs W - 1 snapshot steps; the draft model's
+        # rounds run none on the target (its drafter steps run apart)
+        want_draft = sum(w - 1 for _, w, _ in verifies) \
+            if path == "spec/self" else 0
+        if len(draft_steps) != want_draft or (
+                path == "spec/draft") != (drafter_steps[0] > 0):
+            raise AssertionError(
+                f"serve {path}: {len(draft_steps)} draft steps on the "
+                f"target (expected {want_draft}), {drafter_steps[0]} on "
+                f"the drafter")
+        # one attention launch per layer per target decode step (plain or
+        # draft); two Q4 projections per layer at each (K, N) per target
+        # decode step (M = the step's rows: the slots, or the direct
+        # path's batch), per prefill (M = batch x padded width) and per
+        # verify (M = slots x W); two KV dequant launches (K and V) per
+        # partial prefill and per verify, a verify's at R = layers x
+        # slots x prefix width x block size
         attn = "paged_attention" if kv_quant == "none" else \
             "quant_paged_attention"
-        want = {attn: n_layers * len(steps),
-                "lut_dequant_kv": 2 * partial,
+        want = {attn: n_layers * (len(steps) + len(draft_steps)),
+                "lut_dequant_kv": 2 * (partial + len(verifies)),
                 # K5 and K6 are off the served path, as in the JAX package
                 "lut_softmax_attention": 0, "tile_quantize": 0}
         for k, n in GEMM_KN:
-            for m in [rows_ for rows_, _ in steps] + [b * width for b, width,
-                                                      _ in prefills]:
+            for m in ([rows_ for rows_, _ in steps] + draft_steps
+                      + [b * width for b, width, _ in prefills]
+                      + [b * w for b, w, _ in verifies]):
                 want[(m, k, n)] = want.get((m, k, n), 0) + 2 * n_layers
+        want_kv = {}
+        for b, _, pw in verifies:
+            key = (kv_quant, n_layers * b * pw * 16)
+            want_kv[key] = want_kv.get(key, 0) + 2
         got = {**counts, **shapes}
         if any(got.get(key, 0) != n for key, n in want.items()) or \
-                counts["lut_dequant_gemm"] != sum(shapes.values()):
-            raise AssertionError(f"serve {path}: launches {got}, expected "
-                                 f"{want}")
+                counts["lut_dequant_gemm"] != sum(shapes.values()) or \
+                (verifies and kv_shapes != want_kv):
+            raise AssertionError(f"serve {path}: launches {got} "
+                                 f"{kv_shapes}, expected {want} {want_kv}")
         runs[path] = {"counts": counts, "shapes": shapes,
                       "kv_shapes": kv_shapes}
+        if path in SPEC_PATHS:
+            spec[path] = {"tokens": {
+                (smp.req_id, smp.sample_idx): list(smp.tokens)
+                for smps in scheds[-1].completed.values() for smp in smps}}
+            spec[path]["top"] = {
+                keys[i]: (v.tolist(), ix.tolist())
+                for keys, vals, ids in top
+                for i, v, ix in zip(range(vals.shape[0]), vals.cpu(),
+                                    ids.cpu()) if i in keys}
+            spec["eos_id"] = built["engine"].eos_id
         wall_s = t1 - built["t0"]
-        decode = int(torch.stack(live).sum()) if live else 0
-        step_s = np.array([dt for _, dt in steps])
+        # decode tokens: rows each plain step advances plus the tokens
+        # each speculative round committed; a step's time is a plain
+        # step's or a whole round's
+        decode = (int(torch.stack(live).sum()) if live else 0) + \
+            sum(c for c, _ in rounds)
+        step_s = np.array([dt for _, dt in steps] + [dt for _, dt in rounds])
         p50, p99 = (float(np.percentile(step_s, q)) for q in (50, 99))
         emit("serve", path=path, kv_quant=kv_quant, impl=impl,
              method=row["method"],
@@ -1066,7 +1249,19 @@ def serve_runs(n_layers: int = 28) -> dict:
                             for k, v in sorted(shapes.items())},
              dequant_kv_launches={f"{m}/R{r}": v
                                   for (m, r), v in sorted(kv_shapes.items())},
-             attn_launches_per_decode_step=counts[attn] / max(1, len(steps)),
+             attn_launches_per_decode_step=counts[attn] / max(
+                 1, len(steps) + len(draft_steps)),
+             **({} if not rounds else dict(
+                 spec_rounds=len(rounds), plain_steps=len(steps),
+                 draft_steps=len(draft_steps),
+                 drafter_steps=drafter_steps[0],
+                 verify_widths=sorted({w for _, w, _ in verifies}),
+                 verify_prefix_widths=sorted({pw for *_, pw in verifies}),
+                 committed_per_round=sum(c for c, _ in rounds) / len(rounds),
+                 round_time_p50_ms=float(np.percentile(
+                     [dt for _, dt in rounds], 50)) * 1e3,
+                 spec_acceptance_rate=s["spec_acceptance_rate"],
+                 accepted_tokens_per_step=s["accepted_tokens_per_step"])),
              **({} if s is None else dict(
                  prefill_tokens=s["prefill_tokens"],
                  prefill_tokens_saved=s["prefill_tokens_saved"],
@@ -1080,7 +1275,7 @@ def serve_runs(n_layers: int = 28) -> dict:
                  # slots a lane held per step, frozen beam lanes included
                  sched_slot_steps=s["decode_tokens"],
                  sched_peak_kv_bytes=s["peak_kv_bytes"])))
-    return runs
+    return runs, spec
 
 
 def profile_decode() -> None:
@@ -1193,15 +1388,17 @@ def main() -> int:
     results: list = []
     check_paged_kernels(results)
     reference_check()
-    runs = serve_runs()
+    runs, spec = serve_runs()
+    spec_parity(spec, spec.pop("eos_id"))
     # K3 and K4 at the shapes the serve runs launched them with: K3's M on
     # the north-star path (8 decode slots, a Best-of-N group's padded
     # prompt), on the prefix paths (each prefill's batch x its longest
-    # suffix) and on the TTS paths (the direct path's 64-token prompt
-    # width); K4's R on the prefix paths
+    # suffix), on the TTS paths (the direct path's 64-token prompt width)
+    # and on the speculative paths (the verify's 8 slots x W); K4's R on
+    # the prefix paths and the verify's prefix gathers
     gemm_m, kv_r = {}, {}
     for path in ("q8/exact", "q8/prefix", "q4/prefix", "sc/direct",
-                 "beam/sched", "beam/direct"):
+                 "beam/sched", "beam/direct") + SPEC_PATHS:
         for m, _, _ in runs[path]["shapes"]:
             gemm_m.setdefault(m, path)
         for key in runs[path]["kv_shapes"]:

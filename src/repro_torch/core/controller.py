@@ -15,7 +15,9 @@ Two serving paths:
 Serving rows carry ``SchedulerMetrics.summary()`` under ``"serving"``
 (with the beam counters ``beam_boundaries``, ``beam_expansions``,
 ``beam_prunes``, ``prm_batches``, ``prm_candidates`` and
-``prm_candidates_per_batch``) plus the paged pool's accounting under
+``prm_candidates_per_batch``, and the speculative counters
+``spec_rounds``, ``draft_tokens``, ``spec_acceptance_rate`` and
+``accepted_tokens_per_step``) plus the paged pool's accounting under
 ``"serving"]["kv"]`` and, with a prefix cache, the cache's interval stats
 under ``"serving"]["prefix_cache"]``.
 """
@@ -32,7 +34,8 @@ from repro_torch.core import best_of_n as BoN
 from repro_torch.core import reward as R
 from repro_torch.core import self_consistency as SC
 from repro_torch.data import tasks as T
-from repro_torch.serving.engine import BeamSpec, ContinuousScheduler, Request
+from repro_torch.serving.engine import (BeamSpec, ContinuousScheduler,
+                                        Request, SpecConfig)
 from repro_torch.serving.kv_pool import dense_kv_bytes
 from repro_torch.serving.sampler import SamplerConfig
 
@@ -98,21 +101,21 @@ def serve_best_of_n(engine, tok, tasks: Sequence[T.MathTask], *, n: int,
                     max_tokens: int, rng: Optional[torch.Generator], scorer,
                     n_slots: int = 8, prompt_len: Optional[int] = None,
                     sc: SamplerConfig = SamplerConfig(temperature=0.8),
-                    prefix_cache=None):
+                    prefix_cache=None, spec: Optional[SpecConfig] = None):
     """Best-of-N over a task set through the continuous-batching
     scheduler: one prefill per task, ``fork`` into ``n`` slots.
     ``prompt_len`` defaults to the longest prompt.  ``prefix_cache``: a
     :class:`~repro_torch.serving.prefix_cache.PrefixCache` over the
     engine's pool; tasks sharing a header then skip re-prefilling it.
-    Returns {"method", "budget", "accuracy", "decode_tokens",
-    "serving"}."""
+    ``spec``: speculative rounds (under greedy ``sc``).  Returns
+    {"method", "budget", "accuracy", "decode_tokens", "serving"}."""
     prompts = [torch.tensor(tok.encode(task.prompt), dtype=torch.int32)
                for task in tasks]
     if prompt_len is None:
         prompt_len = max((int(p.shape[0]) for p in prompts), default=1)
     sched = ContinuousScheduler(engine, n_slots=n_slots,
                                 prompt_len=prompt_len,
-                                prefix_cache=prefix_cache)
+                                prefix_cache=prefix_cache, spec=spec)
     cow_base = engine.pool.reset_peak()
     cache_base = prefix_cache.stats() if prefix_cache is not None else None
     for i, prompt in enumerate(prompts):
@@ -171,7 +174,7 @@ def serve_beam_search(engine, tok, tasks: Sequence[T.MathTask], *,
                       prm, n_slots: int = 8,
                       prompt_len: Optional[int] = None,
                       sc: SamplerConfig = SamplerConfig(temperature=0.8),
-                      prefix_cache=None):
+                      prefix_cache=None, spec: Optional[SpecConfig] = None):
     """Step-level PRM beam search over a task set through the continuous
     scheduler (the served counterpart of ``core.beam_search``).
 
@@ -182,7 +185,8 @@ def serve_beam_search(engine, tok, tasks: Sequence[T.MathTask], *,
     boundary.  Returns the sweep row plus ``"results"`` (one
     :class:`~repro_torch.core.best_of_n.TTSResult` per task; under greedy
     sampling the same completions and choice as the direct path) and the
-    scheduler metrics under ``"serving"``."""
+    scheduler metrics under ``"serving"``.  ``spec``: speculative rounds
+    for other rows; the lanes themselves commit one token per round."""
     prompts = [torch.tensor(tok.encode(task.prompt), dtype=torch.int32)
                for task in tasks]
     if prompt_len is None:
@@ -191,7 +195,7 @@ def serve_beam_search(engine, tok, tasks: Sequence[T.MathTask], *,
     n_slots = max(n_slots, fan)
     sched = ContinuousScheduler(engine, n_slots=n_slots,
                                 prompt_len=prompt_len,
-                                prefix_cache=prefix_cache)
+                                prefix_cache=prefix_cache, spec=spec)
     cow_base = engine.pool.reset_peak()
     cache_base = prefix_cache.stats() if prefix_cache is not None else None
     dot_id = int(tok.encode(".", bos=False)[0])
@@ -237,6 +241,7 @@ def serve_beam_search(engine, tok, tasks: Sequence[T.MathTask], *,
 def sweep(engine, tok, tasks: Sequence[T.MathTask], specs: Sequence[TTSSpec],
           rng: Optional[torch.Generator], scorer, *,
           continuous: bool = False, n_slots: int = 8, prefix_cache=None,
+          spec_decode: Optional[SpecConfig] = None,
           sc: Optional[SamplerConfig] = None):
     """Accuracy / decode cost for each spec — one row per Pareto point.
 
@@ -248,7 +253,9 @@ def sweep(engine, tok, tasks: Sequence[T.MathTask], specs: Sequence[TTSSpec],
     generator ``rng`` feeds every row in turn.  ``sc`` (None: the
     scheduler's default sampler) reaches the scheduler rows only; direct
     rows sample with their method's default, as the JAX package's
-    ``sweep`` does."""
+    ``sweep`` does.  ``spec_decode`` (continuous rows) enables
+    speculative rounds; they fire only under greedy sampling, so pass
+    ``sc=SamplerConfig(greedy=True)`` with it."""
     sc_kwargs = {} if sc is None else {"sc": sc}
     rows = []
     for spec in specs:
@@ -257,7 +264,7 @@ def sweep(engine, tok, tasks: Sequence[T.MathTask], specs: Sequence[TTSSpec],
                 engine, tok, tasks, n=spec.budget,
                 max_tokens=spec.max_tokens, rng=rng, scorer=scorer,
                 n_slots=max(n_slots, spec.budget),
-                prefix_cache=prefix_cache, **sc_kwargs))
+                prefix_cache=prefix_cache, spec=spec_decode, **sc_kwargs))
             continue
         if continuous and spec.method == "beam_search":
             width, expand = spec.beam_shape()
@@ -265,7 +272,7 @@ def sweep(engine, tok, tasks: Sequence[T.MathTask], specs: Sequence[TTSSpec],
                 engine, tok, tasks, width=width, expand=expand,
                 step_tokens=spec.step_tokens, max_steps=spec.beam_steps,
                 rng=rng, prm=scorer, n_slots=max(n_slots, width * expand),
-                prefix_cache=prefix_cache, **sc_kwargs))
+                prefix_cache=prefix_cache, spec=spec_decode, **sc_kwargs))
             continue
         correct = cost = 0
         for task in tasks:

@@ -8,10 +8,14 @@ unless asked otherwise.
   ... --method self_consistency --budget 8 --paged       (direct path)
   ... --method beam_search --beam-width 2 --beam-expand 4 --beam-steps 4 \\
       --step-tokens 8 --paged [--continuous]
+  ... --continuous --paged --spec-k 4 [--self-draft | --draft-model ARCH]
 
 ``--continuous`` serves Best-of-N and beam search through the slot
 scheduler; without it (and always for self-consistency) each task runs
-the direct path: one prefill, fork, generate.  Weights are random, from a
+the direct path: one prefill, fork, generate.  ``--spec-k`` turns each
+scheduler step into a draft-then-verify round (greedy sampling forced),
+drafted by the target itself or by a small registry model.  Weights are
+random, from a
 seeded generator (the repository ships no checkpoint).  ``--smoke``
 selects the reduced config; ``--device cpu`` runs the kernels' plain
 versions on the CPU.  The paged-attention exp mode comes from
@@ -20,6 +24,7 @@ versions on the CPU.  The paged-attention exp mode comes from
 from __future__ import annotations
 
 import argparse
+from typing import Optional
 
 import torch
 
@@ -31,8 +36,9 @@ from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.device import resolve_device
 from repro_torch.models import api
 from repro_torch.quant.qlinear import cast_params, quantize_model_params
-from repro_torch.serving.engine import DecodeEngine
+from repro_torch.serving.engine import DecodeEngine, SpecConfig
 from repro_torch.serving.prefix_cache import PrefixCache
+from repro_torch.serving.sampler import SamplerConfig
 
 MAX_LEN = 256
 
@@ -87,6 +93,20 @@ def parse_args(argv=None):
                          "selection")
     ap.add_argument("--step-tokens", type=int, default=16,
                     help="token budget per reasoning step")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding: draft-then-verify rounds "
+                         "committing up to K tokens per slot per step "
+                         "(greedy acceptance: outputs stay those of plain "
+                         "greedy decoding); 0 disables; requires "
+                         "--continuous --paged; self-drafts unless "
+                         "--draft-model is given")
+    ap.add_argument("--draft-model", default="",
+                    help="configs-registry arch of the small dense draft "
+                         "model proposing tokens for --spec-k (smoke "
+                         "config, vocab aligned to the target)")
+    ap.add_argument("--self-draft", action="store_true",
+                    help="draft with the target itself on a forked "
+                         "(copy-on-write) snapshot of its paged state")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the "
                          "kernels' plain versions)")
@@ -108,7 +128,22 @@ def parse_args(argv=None):
                          "is driven by the scheduler)")
     if MAX_LEN % args.block_size:
         raise SystemExit(f"--block-size must divide max_len={MAX_LEN}")
+    if (args.draft_model or args.self_draft) and not args.spec_k:
+        raise SystemExit("--draft-model/--self-draft need --spec-k K "
+                         "(the proposal budget per round)")
+    if args.spec_k and not args.continuous:
+        raise SystemExit("--spec-k requires --paged --continuous "
+                         "(draft lanes and rejected suffixes are refcount "
+                         "operations on the block pool)")
     return args
+
+
+def spec_decode_of(args) -> Optional[SpecConfig]:
+    """The speculative mode ``args`` ask for (None without --spec-k)."""
+    if not args.spec_k:
+        return None
+    return SpecConfig(k=args.spec_k, draft_model=args.draft_model,
+                      self_draft=args.self_draft or not args.draft_model)
 
 
 def spec_of(args) -> TTSSpec:
@@ -142,7 +177,8 @@ def build_engine(args) -> tuple:
     rows = max(args.slots, args.budget, fan)
     n_blocks = args.kv_blocks or 1 + rows * (MAX_LEN // args.block_size)
     engine = DecodeEngine(params, cfg, max_len=MAX_LEN, eos_id=tok.eos_id,
-                          pad_id=tok.pad_id, block_size=args.block_size,
+                          pad_id=tok.pad_id, paged=True,
+                          block_size=args.block_size,
                           n_blocks=n_blocks, kv_quant=args.kv_quant)
     return engine, tok
 
@@ -166,11 +202,21 @@ def main(argv=None) -> list:
                                         n_shots=args.fewshot)
     else:
         tasks = T.gen_dataset(123, args.tasks)
+    spec_decode = spec_decode_of(args)
+    sc = None
+    if spec_decode is not None:
+        # acceptance compares greedy argmaxes, so speculative serving
+        # decodes greedily
+        sc = SamplerConfig(greedy=True)
+        print(f"[serve] speculative decoding: k={args.spec_k} "
+              f"{'draft=' + args.draft_model if args.draft_model else 'self-draft'}"
+              f" (greedy sampling forced)")
     gen = torch.Generator(device=engine.device)
     gen.manual_seed(0)
     rows = sweep(engine, tok, tasks, [spec_of(args)], gen,
                  R.OracleVerifier(), continuous=args.continuous,
-                 n_slots=args.slots, prefix_cache=prefix_cache)
+                 n_slots=args.slots, prefix_cache=prefix_cache,
+                 spec_decode=spec_decode, sc=sc)
     # leak check: after a full drain the pool holds only the prefix
     # cache's pins
     pinned = (prefix_cache.stats()["cached_blocks"]
@@ -201,6 +247,12 @@ def main(argv=None) -> list:
               f"preemptions={s['preemptions']}")
         print(f"[serve] latency: step_time_p50={s['step_time_p50'] * 1e3:.1f}"
               f"ms step_time_p99={s['step_time_p99'] * 1e3:.1f}ms")
+        if s["spec_rounds"]:
+            print(f"[serve] speculative: rounds={s['spec_rounds']} "
+                  f"draft_tokens={s['draft_tokens']} "
+                  f"acceptance_rate={s['spec_acceptance_rate']:.2f} "
+                  f"accepted_tokens_per_step="
+                  f"{s['accepted_tokens_per_step']:.2f}")
         if s["beam_boundaries"]:
             print(f"[serve] beam: boundaries={s['beam_boundaries']} "
                   f"expansions={s['beam_expansions']} "

@@ -1,6 +1,7 @@
 """Model API.  The port covers the transformer family only:
-``init_params(cfg, seed=, device=)``, ``forward``, ``prefill(paged=)``,
-``decode_step`` over a paged cache, ``init_paged_cache`` (see
+``init_params(cfg, seed=, device=)``, ``forward``, ``prefill(paged=)`` or
+``prefill(cache=)``, ``decode_step`` over a paged or a dense cache,
+``init_paged_cache`` and ``init_cache`` (see
 ``repro_torch.models.transformer``)."""
 from __future__ import annotations
 

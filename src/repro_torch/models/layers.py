@@ -91,8 +91,52 @@ def chunked_attention(q, k, v, *, q_positions, kv_positions,
 
 
 # ---------------------------------------------------------------------------
-# Paged decode attention
+# Decode attention: dense cache rows and the paged pool
 # ---------------------------------------------------------------------------
+
+
+def ring_slot_positions(slots, cache_len, ring_size: int):
+    """Token position held by each slot of a ring cache of ``ring_size``
+    entries: slot i holds the most recent position p <= cache_len - 1
+    with p = i (mod ring_size); p < 0 means the slot is not written yet.
+    slots: (..., S) int; cache_len broadcastable against it."""
+    last = cache_len - 1
+    return last - torch.remainder(last - slots, ring_size)
+
+
+def decode_attention(q, k_cache, v_cache, *, cache_len, window: int = 0,
+                     softcap: float = 0.0, ring: bool = False):
+    """Single-step attention against dense KV cache rows.
+
+    q: (B, 1, Hq, D); caches: (B, S, Hkv, D); cache_len: (B,) int32
+    including the current token, whose K/V is already written.  ``ring``:
+    the cache is a circular buffer of S slots (slot = position % S).
+    Scores and softmax in f32, probabilities cast to v's dtype for P.V
+    with f32 accumulation, as the JAX package's einsum.  Returns
+    (B, 1, Hq, D) in q.dtype."""
+    B, _, Hq, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Hkv, G, D).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float()) * (
+        1.0 / math.sqrt(D))
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    q_pos = (cache_len.long() - 1)[:, None]
+    slots = torch.arange(S, device=q.device)[None]
+    if ring:
+        kv_pos = ring_slot_positions(slots, cache_len.long()[:, None], S)
+        valid = kv_pos >= 0
+    else:
+        kv_pos = slots
+        valid = kv_pos < cache_len.long()[:, None]
+    valid = valid & _window_ok(q_pos, kv_pos, window)
+    s = torch.where(valid[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype).float(),
+                     v_cache.float())
+    return o.reshape(B, 1, Hq, D).to(q.dtype)
+
 
 PAGED_ATTN_IMPLS = ("exact", "lut")
 _PAGED_ATTN_IMPL = os.environ.get("REPRO_TORCH_PAGED_ATTN", "exact")
@@ -150,6 +194,11 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
       **in place** at (table[b, (len-1)//bs], (len-1) % bs), and attention
       walks the table.  A done row arrives with cache_len == W*bs and
       writes to the scratch block or an unattended final offset.
+    - dense decode: ``cache`` = {"k", "v"} per-layer rows (B, S, Hkv, D);
+      the current token's K/V is written **in place** at slot len - 1
+      (``(len - 1) % S`` on a ring cache) and attention reads the rows.
+      A done row arrives with cache_len == S and writes to the last slot,
+      the scratch slot no live row attends.
     """
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim()
@@ -172,6 +221,17 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         o = chunked_attention(q, k, v, q_positions=positions,
                               kv_positions=positions, causal=True,
                               window=window, softcap=cfg.logit_softcap)
+    elif "table" not in cache:
+        ring = cfg.ring_cache
+        S_cache = cache["k"].shape[1]
+        idx = (cache_len.long() - 1) % S_cache if ring else \
+            cache_len.long() - 1
+        b_idx = torch.arange(B, device=x.device)
+        for rows, new in ((cache["k"], k), (cache["v"], v)):
+            rows[b_idx, idx] = new[:, 0].to(rows.dtype)
+        o = decode_attention(q, cache["k"], cache["v"], cache_len=cache_len,
+                             window=window, softcap=cfg.logit_softcap,
+                             ring=ring)
     else:
         from repro_torch.serving.kv_quant import (pool_block_size,
                                                   quantize_for_pool)

@@ -1,12 +1,14 @@
 """Dense GQA decoder-only transformer (the qwen2.5 family) with a paged
-KV cache.
+or a dense KV cache.
 
 Parameters are a dict {"embedding": {"table"}, "layers": [per-layer
 dict, ...], "final_norm": {"scale"}}; the layers run as a Python loop
 (the JAX package scans stacked layer leaves instead; ``bridge`` splits
-them).  The KV cache is a block pool updated **in place**: ``prefill``
-scatters the prompt's KV into the rows' blocks and ``decode_step`` writes
-one token per row, both through per-row block tables.
+them).  Both KV layouts are updated **in place**.  The paged layout is a
+block pool: ``prefill`` scatters the prompt's KV into the rows' blocks
+and ``decode_step`` writes one token per row, both through per-row block
+tables.  The dense layout (``init_cache``) gives every row its own
+(max_len, Hkv, D) slots per layer.
 """
 from __future__ import annotations
 
@@ -79,6 +81,16 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
                            device=dev) * 0.02
         params["lm_head"] = {"table": head.to(dtype)}
     return params
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
+               device) -> dict:
+    """Dense KV rows: (L, batch, max_len, Hkv, D) per leaf, zeroed."""
+    dtype = dtype or getattr(torch, cfg.dtype)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+             cfg.resolved_head_dim())
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
@@ -221,52 +233,81 @@ def _scatter_suffix_blocks(pool, kv, table, block_size: int, start) -> None:
         pool[blk, off] = payload.to(pool.dtype)
 
 
-def prefill(params, tokens, cfg: ModelConfig, *, lengths, paged: dict,
+def prefill(params, tokens, cfg: ModelConfig, *, lengths,
+            paged: Optional[dict] = None, cache: Optional[dict] = None,
             prefix: Optional[dict] = None):
-    """Run right-padded prompts and scatter their KV into a paged cache.
+    """Run right-padded prompts and write their KV into a cache, in place.
+    Exactly one of ``paged`` and ``cache`` is given.
 
     tokens: (B, S); lengths: (B,) true prompt lengths; ``paged``:
     {"k", "v", "table"} — stacked pool leaves (L, n_blocks, bs, Hkv, D)
     (or quantized dicts) and a (B, W) int32 table whose first
-    ceil(S / bs) columns hold each row's prompt blocks.  The pools are
-    written in place.  Returns the (B, V) f32 logits at each row's last
-    prompt position.
+    ceil(S / bs) columns hold each row's prompt blocks.  ``cache``: dense
+    rows {"k", "v"} of (L, B, max_len, Hkv, D) from :func:`init_cache`,
+    whose first S slots take the prompt's KV (padding included, masked
+    later by the rows' lengths).  Returns the (B, V) f32 logits at each
+    row's last prompt position.
 
     ``prefix``: a cached-prefix handle (see :func:`forward`) for partial
-    prefill; ``tokens``/``lengths`` then describe only the uncached
-    suffix, whose KV is written into the table at offset
+    prefill, paged only; ``tokens``/``lengths`` then describe only the
+    uncached suffix, whose KV is written into the table at offset
     ``prefix["len"]`` while the cached positions stay untouched."""
     from repro_torch.serving.kv_quant import pool_block_size
 
+    if (paged is None) == (cache is None):
+        raise ValueError("prefill takes exactly one of paged= and cache=")
+    if prefix is not None and paged is None:
+        raise ValueError("partial prefill over a cached prefix requires the "
+                         "paged cache layout")
     logits, kvs = forward(params, tokens, cfg, logit_positions=lengths - 1,
                           return_kv=True, prefix=prefix)
+    if cache is not None:
+        S = tokens.shape[1]
+        for layer, (k, v) in enumerate(kvs):
+            cache["k"][layer, :, :S] = k.to(cache["k"].dtype)
+            cache["v"][layer, :, :S] = v.to(cache["v"].dtype)
+        return logits
+    if prefix is not None:
+        scatter_suffix(paged, kvs, prefix["len"])
+        return logits
     bs = pool_block_size(paged["k"], axis=2)
     for layer, (k, v) in enumerate(kvs):
         for pool, new in ((paged["k"], k), (paged["v"], v)):
-            if prefix is None:
-                _scatter_prefill_blocks(pool_layer(pool, layer), new,
-                                        paged["table"], bs)
-            else:
-                _scatter_suffix_blocks(pool_layer(pool, layer), new,
-                                       paged["table"], bs, prefix["len"])
+            _scatter_prefill_blocks(pool_layer(pool, layer), new,
+                                    paged["table"], bs)
     return logits
 
 
-def decode_step(params, tokens, cache: dict, cache_len, cfg: ModelConfig):
-    """One decode step over a paged cache.
+def scatter_suffix(paged: dict, kvs, start) -> None:
+    """Write per-layer suffix KV (B, S, Hkv, D), as :func:`forward`
+    returns it, into a paged cache in place: row b's token j lands at
+    position ``start[b] + j`` (clamped to the table's last slot)."""
+    from repro_torch.serving.kv_quant import pool_block_size
 
-    tokens: (B, 1) current tokens; cache: {"k", "v", "table"} as in
-    :func:`prefill`; cache_len: (B,) int32 sequence length *after* this
-    token is appended.  Writes each row's K/V into the pools in place and
-    returns the (B, V) f32 next-token logits."""
+    bs = pool_block_size(paged["k"], axis=2)
+    for layer, (k, v) in enumerate(kvs):
+        for pool, new in ((paged["k"], k), (paged["v"], v)):
+            _scatter_suffix_blocks(pool_layer(pool, layer), new,
+                                   paged["table"], bs, start)
+
+
+def decode_step(params, tokens, cache: dict, cache_len, cfg: ModelConfig):
+    """One decode step over a paged or a dense cache.
+
+    tokens: (B, 1) current tokens; cache: the paged {"k", "v", "table"}
+    or the dense {"k", "v"} of :func:`prefill`; cache_len: (B,) int32
+    sequence length *after* this token is appended.  Writes each row's
+    K/V into the cache in place and returns the (B, V) f32 next-token
+    logits."""
     dtype = getattr(torch, cfg.dtype)
     x = L.embed(params["embedding"], tokens, dtype)
     positions = (cache_len - 1)[:, None]
     for layer, (lp, w) in enumerate(zip(params["layers"],
                                         layer_windows(cfg))):
         layer_cache = {"k": pool_layer(cache["k"], layer),
-                       "v": pool_layer(cache["v"], layer),
-                       "table": cache["table"]}
+                       "v": pool_layer(cache["v"], layer)}
+        if "table" in cache:
+            layer_cache["table"] = cache["table"]
         x, _ = _layer(lp, x, cfg, positions=positions, window=w,
                       cache=layer_cache, cache_len=cache_len)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)

@@ -1,4 +1,4 @@
-"""Batched paged decode engine and the continuous-batching scheduler.
+"""Batched decode engine and the continuous-batching scheduler.
 
 Decode is weight-bandwidth-bound, so a decode batch has idle rows that
 parallel test-time-scaling samples occupy for almost nothing; the engine
@@ -22,9 +22,19 @@ The state carries ``pending_logits``, the logits the next token is
 sampled from, so no KV row is written twice and the first generated
 token is sampled from the prefill logits exactly.
 
-KV lives in a refcounted block pool (:class:`~repro_torch.serving.
-kv_pool.KVPool`, or the tile-quantized :class:`~repro_torch.serving.
-kv_quant.QuantKVPool`) and each row holds a block table.  The pool's
+Speculative decoding (``spec_verify``, ``spec_snapshot``, ``trim_rows``)
+commits the longest greedy-agreeing prefix of several proposed tokens
+per row in one forward; the scheduler drafts them with the target on a
+refcounted snapshot of its own rows or with a small dense model
+(``forced_step``).
+
+The engine runs in one of two KV layouts.  **Dense** (``paged=False``,
+the default): each row owns (max_len, Hkv, D) slots per layer, and
+``fork`` / ``reorder`` copy rows; the speculative drafter runs on it.
+**Paged** (``paged=True``): KV lives in a refcounted block pool
+(:class:`~repro_torch.serving.kv_pool.KVPool`, or the tile-quantized
+:class:`~repro_torch.serving.kv_quant.QuantKVPool`) and each row holds a
+block table.  The pool's
 device storage is updated **in place** by prefill, decode and CoW (the
 JAX package's jit and buffer donation have no counterpart: PyTorch runs
 eagerly); the block tables and owned-block counts are host-side numpy,
@@ -56,29 +66,34 @@ from repro_torch.serving.sampler import SamplerConfig, logprobs_of, sample
 class GenState:
     """Decoding state for a batch of sequences.
 
-    ``table`` (B, W) int32 block ids and ``n_blocks`` (B,) owned-block
-    counts are host numpy; the per-row vectors live on the engine's
-    device."""
+    Paged states carry ``table`` (B, W) int32 block ids and ``n_blocks``
+    (B,) owned-block counts as host numpy, their KV living in the
+    engine's pool; dense states carry ``cache``, the rows' own KV
+    {"k", "v"} of (L, B, max_len, Hkv, D), and no table.  The per-row
+    vectors live on the engine's device."""
 
-    table: np.ndarray
-    n_blocks: np.ndarray
+    table: Optional[np.ndarray]
+    n_blocks: Optional[np.ndarray]
     cache_len: torch.Tensor       # (B,) int32 — prompt + generated so far
     pending_logits: torch.Tensor  # (B, V) f32 — next token sampled from
     done: torch.Tensor            # (B,) bool
     logprob_sum: torch.Tensor     # (B,) f32 cumulative sampled logprob
     n_gen: torch.Tensor           # (B,) int32
+    cache: Optional[dict] = None  # dense layout only
 
 
 class DecodeEngine:
-    """Paged decode engine over one model.
+    """Decode engine over one model, on dense KV rows or (``paged=True``)
+    a block pool.
 
     ``params`` must already live on the engine's device (the device is
     taken from the embedding table).  ``kv_quant`` "q8" | "q4" stores the
-    pool tile-quantized."""
+    pool tile-quantized (paged only)."""
 
     def __init__(self, params, cfg: ModelConfig, *, max_len: int = 512,
-                 eos_id: int = 1, pad_id: int = 0, block_size: int = 16,
-                 n_blocks: Optional[int] = None, kv_quant: str = "none"):
+                 eos_id: int = 1, pad_id: int = 0, paged: bool = False,
+                 block_size: int = 16, n_blocks: Optional[int] = None,
+                 kv_quant: str = "none"):
         self.params = params
         self.cfg = cfg
         self.model = api.get_model(cfg)
@@ -86,7 +101,14 @@ class DecodeEngine:
         self.max_len = max_len
         self.eos_id = eos_id
         self.pad_id = pad_id
+        self.paged = paged
         self.kv_quant = kv_quant
+        self.pool: Optional[KVPool] = None
+        if kv_quant != "none" and not paged:
+            raise ValueError("kv_quant requires the paged KV layout "
+                             "(DecodeEngine(paged=True))")
+        if not paged:
+            return
         if max_len % block_size:
             raise ValueError(f"max_len ({max_len}) must be a multiple of "
                              f"block_size ({block_size})")
@@ -110,9 +132,12 @@ class DecodeEngine:
     def _vec(self, values, dtype) -> torch.Tensor:
         return torch.as_tensor(values, dtype=dtype, device=self.device)
 
-    def _cache(self, table: np.ndarray) -> dict:
-        return {"k": self.pool.k, "v": self.pool.v,
-                "table": self._vec(table, torch.int32)}
+    def _cache(self, state: GenState) -> dict:
+        """The model's cache handle for ``state``: its dense rows, or the
+        pool with its block table."""
+        if not self.paged:
+            return state.cache
+        return self._paged_handle(state.table)
 
     # -- prefill ------------------------------------------------------------
     def prefill(self, tokens: torch.Tensor,
@@ -131,15 +156,29 @@ class DecodeEngine:
         multiple has its partly used tail block copy-on-written before
         the suffix extends it, so shared cache blocks are never written.
         Every row needs at least one suffix token.  Rows may carry ragged
-        cached lengths (aligned or mid-block) and suffix lengths."""
+        cached lengths (aligned or mid-block) and suffix lengths.
+
+        Dense engines write the prompts into fresh (max_len) cache rows
+        and take no cached prefix."""
         B, S = tokens.shape
         tokens = tokens.to(self.device)
         if lengths is None:
             lengths = torch.full((B,), S, dtype=torch.int32)
         lens_h = np.asarray(lengths.cpu(), np.int64)
         if cached_table is not None:
+            if not self.paged:
+                raise ValueError("cached-prefix prefill requires a paged "
+                                 "engine (DecodeEngine(paged=True))")
             return self._prefill_with_prefix(tokens, lens_h, cached_table,
                                              cached_lens)
+        if not self.paged:
+            lengths = self._vec(lens_h, torch.int32)
+            cache = self.model.init_cache(self.cfg, B, self.max_len,
+                                          device=self.device)
+            logits = self.model.prefill(self.params, tokens, self.cfg,
+                                        lengths=lengths, cache=cache)
+            return self._prefilled_state(None, None, lengths, logits,
+                                         cache=cache)
         bs = self.pool.block_size
         per_row = [blocks_for(n, bs) for n in lens_h]
         if not self.pool.reserve(sum(per_row)):
@@ -152,18 +191,23 @@ class DecodeEngine:
         lengths = self._vec(lens_h, torch.int32)
         logits = self.model.prefill(self.params, tokens, self.cfg,
                                     lengths=lengths,
-                                    paged=self._cache(table))
+                                    paged=self._paged_handle(table))
         return self._prefilled_state(table, n_blocks, lengths, logits)
 
-    def _prefilled_state(self, table, n_blocks, cache_len,
-                         logits) -> GenState:
-        B = table.shape[0]
+    def _paged_handle(self, table: np.ndarray) -> dict:
+        return {"k": self.pool.k, "v": self.pool.v,
+                "table": self._vec(table, torch.int32)}
+
+    def _prefilled_state(self, table, n_blocks, cache_len, logits, *,
+                         cache=None) -> GenState:
+        B = logits.shape[0]
         return GenState(
             table=table, n_blocks=n_blocks, cache_len=cache_len,
             pending_logits=logits.float(),
             done=torch.zeros((B,), dtype=torch.bool, device=self.device),
             logprob_sum=torch.zeros((B,), device=self.device),
-            n_gen=torch.zeros((B,), dtype=torch.int32, device=self.device))
+            n_gen=torch.zeros((B,), dtype=torch.int32, device=self.device),
+            cache=cache)
 
     def _prefill_with_prefix(self, tokens, lens_h, cached_table,
                              cached_lens) -> GenState:
@@ -220,7 +264,7 @@ class DecodeEngine:
                 off += int(n_new[i])
         # gather only the columns some row has cached (the batch max)
         prefix_w = max(1, int(-(-int(cach_h.max()) // bs)))
-        cache = self._cache(table)
+        cache = self._paged_handle(table)
         prefix = self._gather_prefix(cache["table"],
                                      self._vec(cach_h, torch.int32),
                                      prefix_w=prefix_w)
@@ -257,10 +301,21 @@ class DecodeEngine:
 
     def empty_state(self, batch: int) -> GenState:
         """An all-free decoding state of ``batch`` rows (every row done,
-        holding zero blocks) — the scheduler's persistent slot state."""
+        holding zero blocks, or zeroed dense rows) — the scheduler's
+        persistent slot state."""
+        if not self.paged:
+            return GenState(
+                table=None, n_blocks=None,
+                cache=self.model.init_cache(self.cfg, batch, self.max_len,
+                                            device=self.device),
+                **self._free_vectors(batch))
         return GenState(
             table=np.zeros((batch, self.table_width), np.int32),
             n_blocks=np.zeros((batch,), np.int32),
+            **self._free_vectors(batch))
+
+    def _free_vectors(self, batch: int) -> dict:
+        return dict(
             cache_len=torch.zeros((batch,), dtype=torch.int32,
                                   device=self.device),
             pending_logits=torch.zeros((batch, self.cfg.vocab_size),
@@ -273,23 +328,28 @@ class DecodeEngine:
     # -- row scatter (continuous-batching admission) -------------------------
     def merge_rows(self, dst: GenState, src: GenState, rows) -> GenState:
         """Scatter ``src``'s rows into ``dst`` at indices ``rows`` (in
-        place on ``dst``'s tensors).  The overwritten ``dst`` rows must
-        already be released: block ownership moves from ``src`` rows to
-        ``dst`` rows without touching refcounts."""
+        place on ``dst``'s tensors).  Paged: the overwritten ``dst`` rows
+        must already be released: block ownership moves from ``src`` rows
+        to ``dst`` rows without touching refcounts.  Dense: the rows' KV
+        slots are copied (batch is axis 1 of the cache leaves)."""
         rows_h = np.asarray(rows, np.int64).ravel()
-        dst.table[rows_h] = src.table
-        dst.n_blocks[rows_h] = src.n_blocks
         r = self._vec(rows_h, torch.long)
+        if self.paged:
+            dst.table[rows_h] = src.table
+            dst.n_blocks[rows_h] = src.n_blocks
+        else:
+            for name in ("k", "v"):
+                dst.cache[name][:, r] = src.cache[name]
         for name in ("cache_len", "pending_logits", "done", "logprob_sum",
                      "n_gen"):
             getattr(dst, name)[r] = getattr(src, name)
         return dst
 
     def release_rows(self, state: GenState, rows) -> GenState:
-        """Mark ``rows`` done and free their blocks back to the pool
-        (tables re-pointed at the scratch block)."""
+        """Mark ``rows`` done and, paged, free their blocks back to the
+        pool (tables re-pointed at the scratch block)."""
         rows = np.asarray(rows, np.int64).ravel()
-        for r in rows:
+        for r in rows if self.paged else ():
             self.pool.release(state.table[r, :state.n_blocks[r]])
             state.table[r] = 0
             state.n_blocks[r] = 0
@@ -298,17 +358,26 @@ class DecodeEngine:
         return state
 
     def fork(self, state: GenState, n: int) -> GenState:
-        """Replicate each row n times (row i -> rows [i*n, (i+1)*n)): bumps
-        the refcount of every owned block and repeats the table row, so no
-        KV block is allocated or copied."""
+        """Replicate each row n times (row i -> rows [i*n, (i+1)*n)).
+        Paged: bumps the refcount of every owned block and repeats the
+        table row, so no KV block is allocated or copied.  Dense: copies
+        each row's KV n times."""
+
+        def rep(x, dim=0):
+            return x.repeat_interleave(n, dim=dim)
+
+        if not self.paged:
+            return GenState(
+                table=None, n_blocks=None,
+                cache={k: rep(v, 1) for k, v in state.cache.items()},
+                cache_len=rep(state.cache_len),
+                pending_logits=rep(state.pending_logits),
+                done=rep(state.done), logprob_sum=rep(state.logprob_sum),
+                n_gen=rep(state.n_gen))
         if n > 1:
             for i in range(state.table.shape[0]):
                 self.pool.retain(state.table[i, :state.n_blocks[i]],
                                  times=n - 1)
-
-        def rep(x):
-            return x.repeat_interleave(n, dim=0)
-
         return GenState(
             table=np.repeat(state.table, n, axis=0),
             n_blocks=np.repeat(state.n_blocks, n, axis=0),
@@ -317,12 +386,21 @@ class DecodeEngine:
             logprob_sum=rep(state.logprob_sum), n_gen=rep(state.n_gen))
 
     def reorder(self, state: GenState, idx) -> GenState:
-        """Gather rows by ``idx`` (beam-search survivor commit): the block
-        tables are gathered and refcounts fixed — rows ``idx`` drops
-        release their blocks, rows it takes k times gain k - 1 references
-        (their copies then diverge by copy-on-write)."""
+        """Gather rows by ``idx`` (beam-search survivor commit).  Paged:
+        the block tables are gathered and refcounts fixed — rows ``idx``
+        drops release their blocks, rows it takes k times gain k - 1
+        references (their copies then diverge by copy-on-write).  Dense:
+        the gathered rows' KV is copied."""
         idx_h = np.asarray(idx.cpu() if torch.is_tensor(idx) else idx,
                            np.int64).ravel()
+        i = self._vec(idx_h, torch.long)
+        if not self.paged:
+            return GenState(
+                table=None, n_blocks=None,
+                cache={k: v[:, i] for k, v in state.cache.items()},
+                cache_len=state.cache_len[i],
+                pending_logits=state.pending_logits[i], done=state.done[i],
+                logprob_sum=state.logprob_sum[i], n_gen=state.n_gen[i])
         counts = np.bincount(idx_h, minlength=state.table.shape[0])
         for r in range(state.table.shape[0]):
             owned = state.table[r, :state.n_blocks[r]]
@@ -330,7 +408,6 @@ class DecodeEngine:
                 self.pool.release(owned)
             elif counts[r] > 1:
                 self.pool.retain(owned, times=int(counts[r]) - 1)
-        i = self._vec(idx_h, torch.long)
         return GenState(
             table=state.table[idx_h], n_blocks=state.n_blocks[idx_h],
             cache_len=state.cache_len[i],
@@ -363,14 +440,24 @@ class DecodeEngine:
         return dataclasses.replace(state, done=done)
 
     # -- paged block bookkeeping ---------------------------------------------
-    def prepare_decode(self, state: GenState, n_steps: int = 1) -> GenState:
+    def prepare_decode(self, state: GenState, n_steps: int = 1,
+                       clamp: bool = False) -> GenState:
         """Host-side block planning before decoding ``n_steps`` tokens.
 
         For every live row: allocate the blocks its next writes land in,
         and copy-on-write any still-shared block at or past the write
         frontier (post-fork tail blocks).  The whole plan is committed
         only if the free list covers it, so an :class:`OutOfBlocks` raise
-        leaves pool and state untouched."""
+        leaves pool and state untouched.  No-op on the dense layout.
+
+        ``clamp=True`` caps each row's plan at the usable sequence length
+        instead of raising: a speculative verify plans ``n_steps``
+        positions for every row, and a row near its budget has its
+        over-length proposals routed to the unattended last slot (never
+        committed: the scheduler caps proposals to the remaining
+        budget)."""
+        if not self.paged:
+            return state
         clen, done = (t.cpu().numpy() for t in (state.cache_len, state.done))
         table, n_blocks = state.table.copy(), state.n_blocks.copy()
         bs = self.pool.block_size
@@ -384,6 +471,8 @@ class DecodeEngine:
             if done[i]:
                 continue
             last = int(clen[i]) + n_steps - 1   # final position written
+            if clamp:
+                last = min(last, self.max_len - 2)
             if last > self.max_len - 2:
                 raise ValueError(
                     f"row {i}: decoding {n_steps} steps from length "
@@ -444,14 +533,14 @@ class DecodeEngine:
         model_len = torch.where(state.done, self.max_len, new_len).to(
             torch.int32)
         logits = self.model.decode_step(self.params, tok[:, None],
-                                        self._cache(state.table), model_len,
+                                        self._cache(state), model_len,
                                         self.cfg)
         # done rows keep the logits that followed their stop token, so
         # resume() continues from them
         pending = torch.where(state.done[:, None], state.pending_logits,
                               logits.float())
         return GenState(
-            table=state.table, n_blocks=state.n_blocks,
+            table=state.table, n_blocks=state.n_blocks, cache=state.cache,
             cache_len=new_len.to(torch.int32), pending_logits=pending,
             done=new_done,
             logprob_sum=state.logprob_sum + torch.where(
@@ -478,6 +567,144 @@ class DecodeEngine:
             return state, torch.zeros((state.done.shape[0], 0),
                                       dtype=torch.int32, device=self.device)
         return state, torch.stack(toks, dim=1)
+
+    # -- speculative decoding (draft-then-verify) ----------------------------
+    def spec_verify(self, state: GenState, xs, n_prop, row_stops=None,
+                    stop_ids: tuple = ()):
+        """Commit the longest greedy-agreeing prefix of ``xs`` (B, W) per
+        row in one batched forward.  Paged only.
+
+        ``xs[:, 0]`` must be the argmax of ``state.pending_logits`` (what
+        a plain greedy step would emit, so a live row always commits at
+        least one token); columns 1.. are draft proposals, and ``n_prop``
+        (B,) counts each row's valid columns.  Blocks for all W positions
+        are planned first (``prepare_decode(clamp=True)``; may raise
+        :class:`OutOfBlocks` with state and pool untouched).  The forward
+        reads each row's committed prefix through its table (the partial
+        prefill's gather, K4 on quantized pools) and writes all W
+        proposals' KV at the row's frontier (done rows at the clamped
+        last slot).  Token j >= 1 commits iff every earlier proposal
+        agreed with the target's argmax, and a committed stop id ends the
+        run.  Logprobs: column 0 under the old pending logits, column j
+        under the verify logits at j - 1.  Returns ``(new_state,
+        commit)``, ``commit`` a host (B, W) 0/1 prefix mask: row i
+        committed ``xs[i, :commit[i].sum()]``.  The rejected suffix's
+        blocks are reclaimed by :meth:`trim_rows`."""
+        if not self.paged:
+            raise ValueError("spec_verify requires the paged KV layout "
+                             "(DecodeEngine(paged=True))")
+        xs = self._vec(xs, torch.int32)
+        B, W = xs.shape
+        stop_ids = tuple(stop_ids) or (self.eos_id,)
+        state = self.prepare_decode(state, W, clamp=True)
+        clen, done = state.cache_len, state.done
+        clen_h, done_h = clen.cpu().numpy(), done.cpu().numpy()
+        # the prefix gather covers the longest live row, block granular
+        top = int(clen_h[~done_h].max()) if (~done_h).any() else 1
+        prefix_w = max(1, -(-top // self.pool.block_size))
+        paged = self._paged_handle(state.table)
+        prefix = self._gather_prefix(paged["table"], clen,
+                                     prefix_w=prefix_w)
+        logits, kvs = self.model.forward(self.params, xs, self.cfg,
+                                         return_kv=True, prefix=prefix)
+        logits = logits.float()                                # (B, W, V)
+        self.model.scatter_suffix(
+            paged, kvs, torch.where(done, self.max_len, clen))
+        tgt = torch.argmax(logits[:, :-1], dim=-1).to(torch.int32)
+        ok = torch.cat([torch.ones((B, 1), dtype=torch.long,
+                                   device=self.device),
+                        torch.cumprod((xs[:, 1:] == tgt).long(), dim=1)],
+                       dim=1)
+        jidx = torch.arange(W, device=self.device)[None]
+        ok = ok * (jidx < self._vec(n_prop, torch.long)[:, None]).long()
+        is_stop = torch.zeros_like(xs, dtype=torch.bool)
+        for s in stop_ids:
+            is_stop |= xs == s
+        if row_stops is not None:
+            is_stop |= xs == self._vec(row_stops, torch.int32)[:, None]
+        stop_commit = ok * is_stop.long()
+        before = torch.cumsum(stop_commit, dim=1) - stop_commit
+        commit = ok * (before == 0).long() * (~done).long()[:, None]
+        a = commit.sum(dim=1)                                  # accepted
+        new_done = done | (commit.bool() & is_stop).any(dim=1)
+        # the next pending logits follow the last committed token (done
+        # rows keep theirs, as in _step_core)
+        last = logits[torch.arange(B, device=self.device),
+                      torch.clamp(a - 1, 0, W - 1)]
+        pending = torch.where(done[:, None], state.pending_logits, last)
+        dists = torch.cat([state.pending_logits[:, None], logits[:, :-1]],
+                          dim=1)
+        lps = torch.gather(torch.log_softmax(dists, dim=-1), -1,
+                           xs.long()[..., None])[..., 0]
+        new_state = dataclasses.replace(
+            state, cache_len=(clen + a).to(torch.int32),
+            pending_logits=pending, done=new_done,
+            logprob_sum=state.logprob_sum + (lps * commit.float()).sum(1),
+            n_gen=(state.n_gen + a).to(torch.int32))
+        return new_state, commit.cpu().numpy().astype(np.int32)
+
+    def trim_rows(self, state: GenState, rows) -> GenState:
+        """Free the planned but unused tail blocks of ``rows`` after a
+        speculative round: blocks past ``blocks_for(cache_len)`` were
+        allocated or copy-on-written (private either way) for proposals
+        the verify rejected, so releasing them is the whole cost of a
+        rejection, no KV moved.  Pass only rows live at verify time.
+        No-op on the dense layout."""
+        rows = np.asarray(rows, np.int64).ravel()
+        if not self.paged or not rows.size:
+            return state
+        bs = self.pool.block_size
+        table, n_blocks = state.table.copy(), state.n_blocks.copy()
+        clen = state.cache_len.cpu().numpy()
+        for r in rows:
+            keep = blocks_for(int(clen[r]), bs)
+            if n_blocks[r] > keep:
+                self.pool.release(table[r, keep:n_blocks[r]])
+                table[r, keep:n_blocks[r]] = 0
+                n_blocks[r] = keep
+        return dataclasses.replace(state, table=table, n_blocks=n_blocks)
+
+    def spec_snapshot(self, state: GenState, rows) -> GenState:
+        """A self-drafting lane: a second state aliasing ``rows``' blocks
+        by a refcount bump (a paged fork).  The draft's first divergent
+        write copy-on-writes its frontier block, so the target's KV is
+        never touched, and ``release_rows`` on the snapshot undoes the
+        bump.  Rows not in ``rows`` come back done with empty tables."""
+        if not self.paged:
+            raise ValueError("spec_snapshot requires the paged KV layout "
+                             "(DecodeEngine(paged=True))")
+        rows = np.asarray(rows, np.int64).ravel()
+        table, n_blocks = state.table.copy(), state.n_blocks.copy()
+        mask = np.zeros(table.shape[0], bool)
+        mask[rows] = True
+        for r in rows:
+            self.pool.retain(table[r, :n_blocks[r]])
+        table[~mask] = 0
+        n_blocks[~mask] = 0
+        return dataclasses.replace(
+            state, table=table, n_blocks=n_blocks,
+            done=state.done | self._vec(~mask, torch.bool))
+
+    def forced_step(self, state: GenState, tok) -> GenState:
+        """Feed a given token per row (no sampling): the draft-model
+        engine consumes the target's committed token before proposing.
+        Logprob and n_gen are untouched.  Dense layout only (the drafter
+        is dense; the next round resyncs its whole state)."""
+        if self.paged:
+            raise ValueError("forced_step supports the dense KV layout "
+                             "only (the speculative draft engine)")
+        tok = torch.where(state.done, self.pad_id,
+                          self._vec(tok, torch.int32)).to(torch.int32)
+        new_len = torch.where(state.done, state.cache_len,
+                              state.cache_len + 1).to(torch.int32)
+        model_len = torch.where(state.done, self.max_len, new_len).to(
+            torch.int32)
+        logits = self.model.decode_step(self.params, tok[:, None],
+                                        state.cache, model_len, self.cfg)
+        pending = torch.where(state.done[:, None], state.pending_logits,
+                              logits.float())
+        return dataclasses.replace(state, cache_len=new_len,
+                                   pending_logits=pending)
 
 
 # ---------------------------------------------------------------------------
@@ -522,6 +749,41 @@ class BeamSpec:
         return self.width * self.expand
 
 
+@dataclass(frozen=True)
+class SpecConfig:
+    """Speculative decoding mode of the continuous scheduler.
+
+    Each scheduler step becomes a draft-then-verify round: a drafter
+    proposes up to ``k`` tokens per eligible row and one batched target
+    forward (``DecodeEngine.spec_verify``) commits the longest prefix
+    that agrees with what plain greedy decoding would produce, so the
+    tokens stay those of plain greedy decoding and only tokens per step
+    change.  Exactly one draft source:
+
+    * ``self_draft=True``: the target drafts for itself on a refcounted
+      snapshot of its own paged state (no extra weights; every draft
+      agrees);
+    * ``draft_model="<arch>"``: a small dense model from the configs
+      registry (smoke config, vocab aligned to the target) runs k - 1
+      cheap decode steps per round.
+
+    Speculation applies under greedy sampling on a paged engine; beam
+    lanes and ``Request(no_spec=True)`` rows ride the verify at one token
+    per round."""
+
+    k: int = 4                   # max tokens committed per row per round
+    draft_model: str = ""        # configs-registry arch of the drafter
+    self_draft: bool = False     # target drafts on a forked snapshot
+
+    def __post_init__(self):
+        if self.k < 2:
+            raise ValueError(f"SpecConfig.k must be >= 2 (k={self.k} "
+                             f"proposes nothing beyond the plain step)")
+        if bool(self.draft_model) == bool(self.self_draft):
+            raise ValueError("SpecConfig needs exactly one draft source: "
+                             "draft_model=<arch> or self_draft=True")
+
+
 @dataclass
 class Request:
     req_id: int
@@ -529,6 +791,7 @@ class Request:
     max_new_tokens: int = 64
     n_samples: int = 1           # > 1: TTS fan-out sharing one prefill
     search: Optional[BeamSpec] = None  # beam-search tree request class
+    no_spec: bool = False        # opt out of speculative rounds
 
 
 @dataclass
@@ -581,6 +844,9 @@ class StepRecord:
     admitted: int                # requests admitted this step
     prefill_tokens: int          # prompt tokens prefilled this step
     wall_s: float = 0.0          # host wall time of this step
+    # tokens committed this step; None = one per occupied row (a plain
+    # step).  A speculative round commits several per row.
+    decode_tokens: Optional[int] = None
 
 
 def percentile(xs, q: float) -> float:
@@ -619,6 +885,17 @@ class SchedulerMetrics:
         self.beam_prunes = 0
         self.prm_batches = 0
         self.prm_candidates = 0
+        # speculative decoding: a round is one draft + verify.
+        # draft_tokens counts proposals beyond each eligible row's first
+        # token, accepted those the verify committed beyond it;
+        # committed / row_steps is every committed token over every
+        # (eligible row, round) pair, > 1 iff speculation beat one token
+        # per step
+        self.spec_rounds = 0
+        self.spec_draft_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.spec_committed_tokens = 0
+        self.spec_row_steps = 0
 
     def record(self, rec: StepRecord):
         self.records.append(rec)
@@ -635,7 +912,9 @@ class SchedulerMetrics:
 
     def summary(self) -> dict:
         steps = len(self.records)
-        decode = sum(r.occupancy for r in self.records)
+        occ_rows = sum(r.occupancy for r in self.records)
+        decode = sum(r.occupancy if r.decode_tokens is None
+                     else r.decode_tokens for r in self.records)
         step_ts = [r.wall_s for r in self.records]
         admitted = sum(r.admitted for r in self.records)
         sizes = self.admission_batch_sizes
@@ -649,7 +928,7 @@ class SchedulerMetrics:
                                     if sizes else 0.0),
             "steps": steps,
             "n_slots": self.n_slots,
-            "avg_slot_occupancy": (decode / (steps * self.n_slots)
+            "avg_slot_occupancy": (occ_rows / (steps * self.n_slots)
                                    if steps else 0.0),
             "decode_tokens": decode,
             "prefill_tokens": sum(r.prefill_tokens for r in self.records),
@@ -676,6 +955,14 @@ class SchedulerMetrics:
             "prm_candidates_per_batch": (self.prm_candidates
                                          / self.prm_batches
                                          if self.prm_batches else 0.0),
+            "spec_rounds": self.spec_rounds,
+            "draft_tokens": self.spec_draft_tokens,
+            "spec_acceptance_rate": (self.spec_accepted_tokens
+                                     / self.spec_draft_tokens
+                                     if self.spec_draft_tokens else 0.0),
+            "accepted_tokens_per_step": (self.spec_committed_tokens
+                                         / self.spec_row_steps
+                                         if self.spec_row_steps else 0.0),
             "step_time_p50": percentile(step_ts, 50),
             "step_time_p99": percentile(step_ts, 99),
         }
@@ -720,11 +1007,31 @@ class ContinuousScheduler:
     cache is the pool's pressure hook, so a block shortage evicts cached
     leaves before it preempts.  One admission prefill carries at most as
     many requests as there are free slots.
+
+    With ``spec=``:class:`SpecConfig`, each decode step under greedy
+    sampling is a draft-then-verify round: the drafter (the target on a
+    refcounted snapshot, or a small dense registry model whose KV shadows
+    the committed context) proposes up to ``spec.k`` tokens per eligible
+    row, one ``engine.spec_verify`` commits the longest greedy-agreeing
+    prefix, and ``engine.trim_rows`` frees the rejected blocks.  Beam
+    lanes and ``no_spec`` rows ride the verify at one token; a round with
+    nothing to propose, or a self-draft short of blocks, falls back to
+    the plain step.  ``OutOfBlocks`` in the verify preempts and reruns
+    the round, the snapshot already released.
+
+    The scheduler runs a paged engine only (the JAX package's also runs
+    the dense layout).
     """
 
     def __init__(self, engine: DecodeEngine, n_slots: int = 8,
                  prompt_len: int = 32, stop_ids: tuple = (),
-                 prefix_cache: Optional[PrefixCache] = None):
+                 prefix_cache: Optional[PrefixCache] = None,
+                 spec: Optional[SpecConfig] = None):
+        if not engine.paged:
+            raise ValueError(
+                "ContinuousScheduler requires a paged engine "
+                "(DecodeEngine(paged=True)): admission, preemption, draft "
+                "lanes and rejected suffixes are block-pool operations")
         self.engine = engine
         self.n_slots = n_slots
         self.prompt_len = prompt_len
@@ -733,6 +1040,26 @@ class ContinuousScheduler:
             raise ValueError("prefix_cache is bound to a different KVPool "
                              "than the engine's")
         self.cache = prefix_cache
+        self.spec = spec
+        # draft-model mode: one persistent dense engine whose KV shadows
+        # the target's committed context (prompts prefilled at admission,
+        # lengths resynced each round, proposals rolled back to the
+        # verify's acceptance point).  Random smoke weights from seed 0;
+        # callers wanting a useful drafter swap self._draft.params.
+        self._draft: Optional[DecodeEngine] = None
+        self._draft_state: Optional[GenState] = None
+        if spec is not None and spec.draft_model:
+            from repro_torch.configs.registry import get_config
+
+            dcfg = get_config(spec.draft_model, smoke=True)
+            if dcfg.vocab_size != engine.cfg.vocab_size:
+                dcfg = dcfg.with_(vocab_size=engine.cfg.vocab_size)
+            dparams = api.get_model(dcfg).init_params(dcfg, seed=0,
+                                                      device=engine.device)
+            self._draft = DecodeEngine(dparams, dcfg, max_len=engine.max_len,
+                                       eos_id=engine.eos_id,
+                                       pad_id=engine.pad_id)
+            self._draft_state = self._draft.empty_state(n_slots)
         self.queue: deque[Request] = deque()
         self.slots: list[Optional[_Slot]] = [None] * n_slots
         self.state: Optional[GenState] = None   # built on first admission
@@ -1236,32 +1563,199 @@ class ContinuousScheduler:
             self.slots[r] = None
         del self._beams[req.req_id]
 
+    # -- speculative rounds --------------------------------------------------
+    def _spec_eligible(self, slot: _Slot) -> bool:
+        """Rows a round may commit more than one token for: plain and
+        Best-of-N rows that did not opt out.  Beam lanes stay one token
+        per round (their freeze and boundary bookkeeping is stepwise)."""
+        return slot.req.search is None and not slot.req.no_spec
+
+    def _sync_draft_admissions(self, live: list) -> None:
+        """Prefill newly admitted eligible rows' prompts into the dense
+        drafter (draft-model mode), so its KV shadows the target's
+        committed context from the prompt on."""
+        rows = [i for i in live
+                if self.slots[i].first_decode_step < 0
+                and self._spec_eligible(self.slots[i])]
+        if not rows:
+            return
+        padded = [self._pad(self.slots[i].req.prompt) for i in rows]
+        st = self._draft.prefill(
+            torch.stack([t for t, _ in padded]),
+            torch.tensor([n for _, n in padded], dtype=torch.int32))
+        self._draft_state = self._draft.merge_rows(self._draft_state, st,
+                                                   rows)
+
+    def _draft_proposals_self(self, xs, n_prop, eligible, W, generator,
+                              sc) -> bool:
+        """Self-drafting: W - 1 plain greedy steps on a refcounted
+        snapshot of the target state (its divergent writes copy-on-write,
+        its release frees; the target's KV is untouched).  Fills
+        ``xs[:, 1:]`` in place; returns False when the snapshot ran out
+        of blocks mid-draft (the round falls back to a plain step)."""
+        eng = self.engine
+        snap = eng.spec_snapshot(self.state, eligible)
+        try:
+            dts = []
+            for m in range(1, W):
+                frz = [i for i in eligible if int(n_prop[i]) == m]
+                if frz:
+                    snap = eng.freeze_rows(snap, frz)
+                snap, dt = eng.step(snap, generator, sc,
+                                    stop_ids=self.stop_ids)
+                dts.append(dt)
+            # each row's last proposal comes from its (possibly frozen)
+            # pending logits: the distribution after its last draft token
+            final_h = torch.argmax(snap.pending_logits, dim=-1).cpu().numpy()
+            dts_h = torch.stack(dts).cpu().numpy()
+        except OutOfBlocks:
+            eng.release_rows(snap, eligible)
+            return False
+        eng.release_rows(snap, eligible)
+        for i in eligible:
+            npi = int(n_prop[i])
+            for c in range(1, npi - 1):
+                xs[i, c] = int(dts_h[c][i])  # step c + 1 sampled column c
+            xs[i, npi - 1] = int(final_h[i])
+        return True
+
+    def _draft_proposals_model(self, xs, n_prop, eligible, W, t0, clen_h,
+                               generator, sc) -> GenState:
+        """Draft-model proposals: resync the dense drafter's lengths to
+        the target's committed context, force-feed the round's first
+        token, then W - 1 greedy steps, each writing its proposal's KV so
+        a fully accepted round leaves no hole.  Returns the advanced
+        draft state (the caller rolls it back to the acceptance point
+        only after the verify succeeds)."""
+        de = self._draft
+        dn = np.ones(self.n_slots, bool)
+        dn[eligible] = False
+        ds = dataclasses.replace(
+            self._draft_state,
+            cache_len=torch.as_tensor(clen_h, dtype=torch.int32,
+                                      device=de.device),
+            done=torch.as_tensor(dn, device=de.device))
+        ds = de.forced_step(ds, t0)
+        dts = []
+        for m in range(1, W):
+            frz = [i for i in eligible if int(n_prop[i]) == m]
+            if frz:
+                ds = de.freeze_rows(ds, frz)
+            ds, dt = de.step(ds, generator, sc, stop_ids=self.stop_ids)
+            dts.append(dt)
+        dts_h = torch.stack(dts).cpu().numpy()
+        for i in eligible:
+            for c in range(1, int(n_prop[i])):
+                xs[i, c] = int(dts_h[c - 1][i])  # step c sampled column c
+        return ds
+
+    def _spec_step(self, generator, sc: SamplerConfig):
+        """One draft-then-verify round over the live batch.  Returns
+        ``(xs, a)``, the proposals and each row's committed count, or None
+        to fall back to a plain step (no row can use a second proposal,
+        or the self-draft ran out of blocks).  An :class:`OutOfBlocks`
+        from the verify's plan propagates to ``step_once``'s preemption
+        loop and the round reruns; any snapshot was already released."""
+        eng = self.engine
+        live = [i for i, s in enumerate(self.slots) if s is not None]
+        done_h = self.state.done.cpu().numpy()
+        clen_h = self.state.cache_len.cpu().numpy()
+        n_prop = np.zeros(self.n_slots, np.int32)
+        for i in live:
+            if done_h[i]:
+                continue  # frozen beam lane: rides along, commits nothing
+            slot = self.slots[i]
+            if not self._spec_eligible(slot):
+                n_prop[i] = 1  # a plain step's token inside the verify
+            else:
+                rem = slot.req.max_new_tokens - len(slot.tokens)
+                n_prop[i] = max(1, min(self.spec.k, rem))
+        W = int(n_prop.max(initial=0))
+        if W < 2:
+            return None
+        eligible = [i for i in live if n_prop[i] > 1]
+        # column 0: the token a plain greedy step would commit now
+        t0 = torch.argmax(self.state.pending_logits, dim=-1).to(torch.int32)
+        t0_h = t0.cpu().numpy()
+        xs = np.full((self.n_slots, W), eng.pad_id, np.int32)
+        for i in live:
+            if n_prop[i]:
+                xs[i, 0] = t0_h[i]
+        ds = None
+        if self.spec.self_draft:
+            if not self._draft_proposals_self(xs, n_prop, eligible, W,
+                                              generator, sc):
+                return None
+        else:
+            ds = self._draft_proposals_model(xs, n_prop, eligible, W, t0,
+                                             clen_h, generator, sc)
+        self.state, commit = eng.spec_verify(
+            self.state, xs, n_prop, row_stops=self._row_stops(),
+            stop_ids=self.stop_ids)
+        a = commit.sum(axis=1).astype(np.int64)
+        # reclaim the rejected suffixes' blocks (rows live at verify time
+        # only: frozen lanes keep their blocks like any frozen row)
+        self.state = eng.trim_rows(self.state,
+                                   [i for i in live if not done_h[i]])
+        if ds is not None:
+            # roll the drafter back to the acceptance point, every row
+            # idle until the next round resyncs; only now that the verify
+            # succeeded (a verify OutOfBlocks keeps the old draft state)
+            self._draft_state = dataclasses.replace(
+                ds, cache_len=torch.as_tensor(clen_h + a, dtype=torch.int32,
+                                              device=ds.done.device),
+                done=torch.ones_like(ds.done))
+        m = self.metrics
+        m.spec_rounds += 1
+        for i in eligible:
+            m.spec_draft_tokens += int(n_prop[i]) - 1
+            m.spec_accepted_tokens += int(a[i]) - 1
+            m.spec_committed_tokens += int(a[i])
+            m.spec_row_steps += 1
+        return xs, a
+
     # -- the step loop -------------------------------------------------------
     def step_once(self, generator: Optional[torch.Generator],
                   sc: SamplerConfig = SamplerConfig()) -> bool:
         """One scheduler step (admit → decode → release).  Returns False
         when idle.  The step's host wall time, which ends with the copy of
-        the sampled tokens to the host, lands in ``StepRecord.wall_s``."""
+        the sampled tokens to the host, lands in ``StepRecord.wall_s``.
+        Under ``spec`` and greedy sampling the decode is a speculative
+        round (see :class:`ContinuousScheduler`)."""
         t_wall = time.perf_counter()
         admitted, prefill_tokens = self._admit()
         live = [i for i, s in enumerate(self.slots) if s is not None]
         if not live:
             return False
+        if self._draft is not None:
+            self._sync_draft_admissions(live)
         for i in live:
             if self.slots[i].first_decode_step < 0:
                 self.slots[i].first_decode_step = self.step_count
+        # acceptance compares argmaxes: speculate under greedy only
+        spec_round = self.spec is not None and sc.greedy
+        spec_out = None
         while True:
             try:
-                self.state, toks = self.engine.step(
-                    self.state, generator, sc, stop_ids=self.stop_ids,
-                    row_stops=self._row_stops())
+                if spec_round:
+                    spec_out = self._spec_step(generator, sc)
+                if spec_out is None:
+                    self.state, toks = self.engine.step(
+                        self.state, generator, sc, stop_ids=self.stop_ids,
+                        row_stops=self._row_stops())
                 break
             except OutOfBlocks:
                 # atomic: the failed plan touched neither pool nor state
                 self._preempt_youngest()
                 live = [i for i, s in enumerate(self.slots) if s is not None]
-        toks_h, done_h, lp_h, ng_h = (
-            t.cpu().numpy() for t in (toks, self.state.done,
+        if spec_out is not None:
+            xs_h, a_h = spec_out
+            toks_h = xs_h[:, 0]  # beam tracking sees the stepwise token
+        else:
+            a_h = None
+            toks_h = toks.cpu().numpy()
+        done_h, lp_h, ng_h = (
+            t.cpu().numpy() for t in (self.state.done,
                                       self.state.logprob_sum,
                                       self.state.n_gen))
         released = []
@@ -1269,11 +1763,16 @@ class ContinuousScheduler:
             slot = self.slots[i]
             if slot.req.search is not None:
                 continue  # beam lanes: tracked per tree below
-            if bool(done_h[i]):          # sampled a stop id (excluded)
+            # the tokens this row committed: the accepted prefix of its
+            # proposals in a speculative round, else the one sampled token
+            run = ([int(t) for t in xs_h[i, :int(a_h[i])]]
+                   if a_h is not None else [int(toks_h[i])])
+            if bool(done_h[i]):          # committed a stop id (excluded)
+                slot.tokens.extend(run[:-1])
                 self._release(i, "stop", float(lp_h[i]), int(ng_h[i]))
                 released.append((i, slot.req))
                 continue
-            slot.tokens.append(int(toks_h[i]))
+            slot.tokens.extend(run)
             if len(slot.tokens) >= slot.req.max_new_tokens:
                 self._release(i, "length", float(lp_h[i]), int(ng_h[i]))
                 released.append((i, slot.req))
@@ -1304,7 +1803,9 @@ class ContinuousScheduler:
         self.metrics.wall_s += wall
         self.metrics.record(StepRecord(
             step=self.step_count, occupancy=len(live), admitted=admitted,
-            prefill_tokens=prefill_tokens, wall_s=wall))
+            prefill_tokens=prefill_tokens, wall_s=wall,
+            decode_tokens=(int(a_h[np.asarray(live, np.int64)].sum())
+                           if a_h is not None else None)))
         self.step_count += 1
         return True
 

@@ -2,10 +2,10 @@
 beam request class and the direct ``core.beam_search`` path (greedy
 parity with each other and with the reference on fp and Q8 pools, and
 the same survivors at every scoring boundary), mixed beam + chat +
-Best-of-N queues, preemption of starved trees, batched PRM scoring with
-the reward model carried across (``core.reward.bridge_reward_params``),
-block release on success and error, submit validation and the prefix
-cache."""
+Best-of-N queues (with and without speculative rounds for the chat
+rows), preemption of starved trees, batched PRM scoring with the reward
+model carried across (``core.reward.bridge_reward_params``), block
+release on success and error, submit validation and the prefix cache."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +20,7 @@ from repro.serving.engine import BeamSpec as JBeamSpec
 from repro.serving.engine import ContinuousScheduler as JScheduler
 from repro.serving.engine import DecodeEngine as JEngine
 from repro.serving.engine import Request as JRequest
+from repro.serving.engine import SpecConfig as JSpecConfig
 from repro.serving.prefix_cache import PrefixCache as JPrefixCache
 from repro.serving.sampler import SamplerConfig as JSampler
 from repro_torch import bridge
@@ -29,7 +30,7 @@ from repro_torch.core import reward as R
 from repro_torch.core.beam_search import beam_search
 from repro_torch.data import tasks as T
 from repro_torch.serving.engine import (BeamSpec, ContinuousScheduler,
-                                        DecodeEngine, Request)
+                                        DecodeEngine, Request, SpecConfig)
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.sampler import SamplerConfig
 
@@ -63,7 +64,8 @@ def engines(weights, tiny_cfg, tok):
                       block_size=8, n_blocks=n_blocks, kv_quant=kv)
             made[kv, n_blocks] = (
                 JEngine(weights[0], tiny_cfg, paged=True, **kw),
-                DecodeEngine(weights[1], _torch_cfg(tiny_cfg), **kw))
+                DecodeEngine(weights[1], _torch_cfg(tiny_cfg), paged=True,
+                             **kw))
         return made[kv, n_blocks]
 
     return make
@@ -178,9 +180,13 @@ def _mean_logprob_spec(tok, spec_cls, delim="."):
                     score=score)
 
 
-def _mixed_queue(engine, tok, *, ref, n_slots=8, delim="."):
+def _mixed_queue(engine, tok, *, ref, n_slots=8, delim=".", spec=False):
+    """A tree, two chat requests and (at 8 slots) a Best-of-2 group in one
+    scheduler; ``spec``: self-drafting speculative rounds (k 4)."""
     sched_cls, req_cls, spec_cls = (JScheduler, JRequest, JBeamSpec) if ref \
         else (ContinuousScheduler, Request, BeamSpec)
+    if spec:
+        spec = (JSpecConfig if ref else SpecConfig)(k=4, self_draft=True)
 
     def prompt(text):
         ids = tok.encode(text)
@@ -188,7 +194,7 @@ def _mixed_queue(engine, tok, *, ref, n_slots=8, delim="."):
                                                          dtype=torch.int32)
 
     sched = sched_cls(engine, n_slots=n_slots, prompt_len=PROMPT_LEN,
-                      stop_ids=NO_STOP)
+                      stop_ids=NO_STOP, spec=spec or None)
     sched.submit(req_cls(req_id=0, prompt=prompt(_beam_tasks(1)[0].prompt),
                          search=_mean_logprob_spec(tok, spec_cls, delim)))
     sched.submit(req_cls(req_id=1, prompt=prompt("Q:7+5=?A:"),
@@ -230,6 +236,32 @@ def test_mixed_queue_beam_chat_bon(engines, tok):
     assert (b["chosen"], b["beam_steps"]) == (wb["chosen"], wb["beam_steps"])
     np.testing.assert_allclose(b["scores"], wb["scores"], atol=1e-4)
     assert sched.metrics.summary()["beam_boundaries"] >= 1
+    assert teng.pool.blocks_in_use == 0
+
+
+def test_beam_lane_frozen_during_spec_verify_resumes_clean(engines, tok):
+    """Freeze and resume under speculation: beam lanes never draft (they
+    ride every verify round at one committed token, so the boundary
+    bookkeeping stays stepwise), and a lane frozen at its step budget
+    while the chat rows still speculate resumes from its committed state
+    with no draft residue.  The delimiter 'z' is never sampled, so every
+    lane takes the freeze path at each boundary.  The whole mixed queue
+    equals the spec-disabled run and the reference's speculative run."""
+    jeng, teng = engines()
+    _, base = _mixed_queue(teng, tok, ref=False, delim="z")
+    sched, got = _mixed_queue(teng, tok, ref=False, delim="z", spec=True)
+    jsched, want = _mixed_queue(jeng, tok, ref=True, delim="z", spec=True)
+    assert got == base == want    # incl. the frozen-then-resumed lanes
+    b = sched.beam_results[0]
+    assert b["beam_steps"] == jsched.beam_results[0]["beam_steps"]
+    s, ws = sched.metrics.summary(), jsched.metrics.summary()
+    for key in ("spec_rounds", "draft_tokens", "steps", "decode_tokens",
+                "beam_boundaries"):
+        assert s[key] == ws[key], key
+    assert s["spec_rounds"] > 0       # chat rows really speculated...
+    assert s["beam_boundaries"] >= 1  # ...across a freeze boundary
+    for rid, text in ((1, "Q:7+5=?A:"), (2, "Q:19+23=?A:")):
+        assert got[rid] == _solo(teng, tok, text, 10)
     assert teng.pool.blocks_in_use == 0
 
 
@@ -313,8 +345,8 @@ def test_beam_with_prefix_cache(engines, weights, tiny_cfg, tok):
     and matches the reference, and the pool keeps only the cache's pins."""
     jeng, _ = engines("none", 47)
     teng = DecodeEngine(weights[1], _torch_cfg(tiny_cfg), max_len=64,
-                        eos_id=tok.eos_id, pad_id=tok.pad_id, block_size=8,
-                        n_blocks=47)
+                        eos_id=tok.eos_id, pad_id=tok.pad_id, paged=True,
+                        block_size=8, n_blocks=47)
     jcache, cache = JPrefixCache(jeng.pool), PrefixCache(teng.pool)
     tasks = _beam_tasks(1)
     rows = [_served(teng, tok, tasks, R.LogProbScorer(), prefix_cache=cache)

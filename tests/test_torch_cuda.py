@@ -18,6 +18,7 @@ from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels import tile_quantize as K6
 from repro_torch.quant import tile_quant as TQ
 from repro_torch.serving.kv_quant import kv_tile_geometry, quantize_kv
+from repro_torch.serving.sampler import SamplerConfig
 
 ATOL = {"exact": 2e-5, "lut": 2e-3}   # the JAX package's kernel bars
 
@@ -524,3 +525,119 @@ def test_cuda_quant_paged_attention_small_scale_groups(cuda, kind):
     want = PA._plain(*args, None, 0, 0.0, "exact")
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=ATOL["exact"], rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the speculative verify: its new K3 M and K4 R, and the whole call
+# ---------------------------------------------------------------------------
+
+# qwen2.5-1.5b's Q4 projections (K, N) and a verify at 8 slots x W 2..4
+QWEN_KN = [(1536, 1536), (1536, 256), (1536, 8960)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [16, 24, 32])
+@pytest.mark.parametrize("kn", QWEN_KN)
+def test_cuda_lut_dequant_gemm_verify_m_matches_plain(cuda, M, kn):
+    """K3 at the verify's M = 8 slots x W (bf16, the served type)."""
+    args = _gemm_args(M, *kn, torch.bfloat16, "tile", cuda)
+    assert G.plan(M, *kn, torch.bfloat16).regime == "small_m"
+    got = G.lut_dequant_gemm(*args)
+    want = G.plain_lut_dequant_gemm(*args)
+    torch.cuda.synchronize()
+    atol, rtol = GEMM_TOL[torch.bfloat16]
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= atol + rtol * want.float().abs()).all()), \
+        float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["q8", "q4"])
+@pytest.mark.parametrize("prefix_w", [1, 4])
+def test_cuda_lut_dequant_kv_verify_r_matches_plain_bitwise(cuda, mode,
+                                                            prefix_w):
+    """K4 at a verify's prefix gather: R = 28 layers x 8 slots x prefix_w
+    blocks x 16 tokens, gathered through ``ops.lut_dequant_gather`` in the
+    (L, B, P, Hkv, D) layout the engine hands it."""
+    gen = torch.Generator().manual_seed(prefix_w)
+    gr, gc = kv_tile_geometry(2, 128)
+    P = prefix_w * 16
+    q = _to(quantize_kv(torch.randn((28 * 8 * P, 2, 128), generator=gen),
+                        mode=mode, gr=gr, gc=gc), cuda)
+    view = {k: v.reshape(28, 8, P, *v.shape[1:]) for k, v in q.items()}
+    before = K4.lut_dequant_kv.launches
+    got = ops.lut_dequant_gather(view)
+    assert K4.lut_dequant_kv.launches == before + 1
+    assert K4.lut_dequant_kv.shapes[mode, 28 * 8 * P] >= 1
+    want = K4.plain_lut_dequant_kv(q["codes"], q["scales"],
+                                   ops.q4_codebook(cuda), mode=mode, gr=gr,
+                                   gc=gc)
+    torch.cuda.synchronize()
+    assert torch.equal(got.reshape(want.shape), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["q8", "q4"])
+def test_cuda_spec_verify_matches_cpu(cuda, kv):
+    """``DecodeEngine.spec_verify`` on the card (K4 prefix gather, K3 at
+    M = 3 rows x W 4) against the same call on the CPU (plain versions),
+    from the same W4A16 weights and prompts: the same commit mask and
+    lengths, the next pending logits within the reference check's bars
+    (q8 5e-3, q4 5e-2), and the pool drained after trim and release."""
+    import numpy as np
+
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import transformer as TR
+    from repro_torch.quant.qlinear import quantize_model_params
+    from repro_torch.serving.engine import DecodeEngine
+
+    cfg = ModelConfig(name="verify", n_layers=2, d_model=128, n_heads=4,
+                      n_kv_heads=2, d_ff=256, vocab_size=320,
+                      dtype="float32", qkv_bias=True, tie_embeddings=True)
+    params = quantize_model_params(TR.init_params(cfg, seed=3, device="cpu"))
+    gen = torch.Generator().manual_seed(1)
+    prompts = torch.randint(3, 300, (3, 13), generator=gen,
+                            dtype=torch.int32)
+    lens = torch.tensor([13, 5, 9], dtype=torch.int32)
+
+    def tree(x, dev):
+        if isinstance(x, dict):
+            return {k: tree(v, dev) for k, v in x.items()}
+        if isinstance(x, list):
+            return [tree(v, dev) for v in x]
+        return x.to(dev)
+
+    def engine(dev):
+        return DecodeEngine(tree(params, dev), cfg, max_len=64, paged=True,
+                            block_size=8, n_blocks=1 + 3 * 8, kv_quant=kv)
+
+    # proposals: the CPU's greedy continuation, cut by a wrong token at
+    # column 3 (row 0), 1 (row 1) and past n_prop (row 2)
+    ref = engine("cpu")
+    st = ref.prefill(prompts, lens)
+    st, greedy = ref.generate(st, 4, None, SamplerConfig(greedy=True))
+    ref.release_rows(st, [0, 1, 2])
+    xs = greedy.numpy().copy()
+    xs[0, 3] = (xs[0, 3] + 1) % 320
+    xs[1, 1] = (xs[1, 1] + 1) % 320
+    n_prop = np.array([4, 4, 2], np.int32)
+    out = []
+    for dev in ("cpu", cuda):
+        eng = engine(dev)
+        st = eng.prefill(prompts, lens)
+        k3, k4 = G.lut_dequant_gemm.launches, K4.lut_dequant_kv.launches
+        st, commit = eng.spec_verify(st, xs, n_prop, stop_ids=(9999,))
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert K4.lut_dequant_kv.launches - k4 == 2
+            assert G.lut_dequant_gemm.launches - k3 == 2 * 6
+        st = eng.trim_rows(st, [0, 1, 2])
+        out.append((commit, st.cache_len.cpu(), st.pending_logits.cpu(),
+                    st.n_blocks.copy()))
+        eng.release_rows(st, [0, 1, 2])
+        assert eng.pool.blocks_in_use == 0
+    (c0, l0, p0, n0), (c1, l1, p1, n1) = out
+    assert (c0.sum(1) == [3, 1, 2]).all() and (c1 == c0).all()
+    assert torch.equal(l0, l1) and (n0 == n1).all()
+    torch.testing.assert_close(p1, p0, atol={"q8": 5e-3, "q4": 5e-2}[kv],
+                               rtol=0)

@@ -89,4 +89,31 @@ def test_cpu_serve_entry_point_runs(no_cuda, capsys):
     assert "kv pool clean: 0 blocks" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         serve.main(["--arch", "qwen2.5-1.5b", "--smoke", "--device", "cpu",
-                    "--dry"])  # the dense layout is not ported
+                    "--dry"])  # the entry point serves the paged layout only
+
+
+@pytest.mark.parametrize("draft", [["--self-draft"],
+                                   ["--draft-model", "qwen2.5-1.5b"]])
+def test_cpu_serve_speculative_entry_point_runs(no_cuda, capsys, draft):
+    """``--spec-k`` serves greedy speculative rounds on the CPU when asked
+    for it, prints its lines and drains the pool; without ``--device
+    cpu`` it refuses, and it refuses flags that cannot work together."""
+    from repro_torch.launch import serve
+
+    args = ["--arch", "qwen2.5-1.5b", "--smoke", "--continuous", "--paged",
+            "--kv-quant", "q8", "--spec-k", "4", *draft, "--dry"]
+    rows = serve.main(args + ["--device", "cpu"])
+    s = rows[0]["serving"]
+    assert s["spec_rounds"] > 0 and s["completed_requests"] == 2
+    out = capsys.readouterr().out
+    assert "[serve] speculative decoding: k=4" in out
+    assert "[serve] speculative: rounds=" in out
+    assert "kv pool clean: 0 blocks" in out
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(args)
+    with pytest.raises(SystemExit, match="need --spec-k"):
+        serve.main(["--arch", "qwen2.5-1.5b", "--smoke", "--device", "cpu",
+                    "--continuous", "--paged", *draft, "--dry"])
+    with pytest.raises(SystemExit, match="--continuous"):
+        serve.main(["--arch", "qwen2.5-1.5b", "--smoke", "--device", "cpu",
+                    "--paged", "--spec-k", "4", *draft, "--dry"])

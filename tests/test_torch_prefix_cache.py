@@ -184,7 +184,7 @@ def _engines(tiny_cfg, kv, *, n_blocks=40, seed=9, max_len=64):
     jeng = JEngine(jp, tiny_cfg, paged=True, **kw)
     teng = DecodeEngine(bridge.params_from_jax(jax.device_get(jp),
                                                device="cpu"),
-                        _torch_cfg(tiny_cfg), **kw)
+                        _torch_cfg(tiny_cfg), paged=True, **kw)
     return jeng, teng
 
 

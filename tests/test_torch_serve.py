@@ -89,7 +89,7 @@ def _serve_both(monkeypatch, tok, cfg, jparams, kv, *, n, n_slots,
     teng = DecodeEngine(bridge.params_from_jax(jax.device_get(jparams),
                                                device="cpu"),
                         _torch_cfg(cfg), max_len=64, eos_id=tok.eos_id,
-                        pad_id=tok.pad_id, block_size=block_size,
+                        pad_id=tok.pad_id, paged=True, block_size=block_size,
                         n_blocks=n_blocks, kv_quant=kv)
     got = C.serve_best_of_n(teng, tok, tasks, n=n, max_tokens=max_tokens,
                             rng=torch.Generator().manual_seed(0),

@@ -109,8 +109,8 @@ def make_pair(tiny_cfg, tok, jparams):
                         n_blocks=N_BLOCKS, kv_quant=kv)
             t = DecodeEngine(tparams, _torch_cfg(tiny_cfg), max_len=MAX_LEN,
                              eos_id=tok.eos_id, pad_id=tok.pad_id,
-                             block_size=BLOCK, n_blocks=N_BLOCKS,
-                             kv_quant=kv)
+                             paged=True, block_size=BLOCK,
+                             n_blocks=N_BLOCKS, kv_quant=kv)
             made[kv] = (Side(j, tok, True), Side(t, tok, False))
         return made[kv]
 
