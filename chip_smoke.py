@@ -54,7 +54,20 @@ Phases, one JSON line each:
    built: ``peak_device_bytes`` is the serving peak,
    ``load_peak_device_bytes`` the weights' init, beside the pool's own
    ``peak_kv_bytes``;
-6. ``flash``: ``ops.flash_attention`` (K5) in its three exp modes (lut,
+6. ``observe``: the serve again through ``--trace`` and ``--profile``
+   (the request tracer, the kernel profiler with its numerics canary at
+   rate 0.25), Best-of-8 over 2 tasks: Q8/exact off, on, off, on, then on
+   with the canary off; Q4/LUT and q8/prefix on; spec/self traced.  Each
+   trace and report must pass the port's validators, each op's hooked
+   calls must equal its kernel's launches outside the canary (28 paged
+   attention and 168 K3 per decode step), the canary must launch no paged
+   attention, and spec/self must record one ``spec_verify`` span per
+   round.  One ``observe`` line per run (span totals and p50 by name,
+   admission steps, TTFT / inter-token / queue-wait percentiles,
+   ``kernel_time_share``, ``roofline_efficiency_p50``, per-op calls, bound
+   and attributed wall, the canary's drift) and an ``observe_cost`` line
+   (decode tok/s and step p50 off and on, in turns);
+7. ``flash``: ``ops.flash_attention`` (K5) in its three exp modes (lut,
    poly, exact) at qwen2.5-1.5b's attention geometry (12 query heads, 2 KV
    heads, head_dim 128, causal) for (B, S) = (1, 2048), (8, 256) and
    (1, 79), and at the JAX package's Fig. 14 and Table 5 shapes; every
@@ -62,17 +75,17 @@ Phases, one JSON line each:
    within 2e-2 of f32 attention, and the full-width cases timed beside
    their bound, the plain version and ``F.scaled_dot_product_attention``
    (timed only);
-7. ``quantize``: ``ops.tile_quantize_op`` (K6) over the 168 Q4
+8. ``quantize``: ``ops.tile_quantize_op`` (K6) over the 168 Q4
    projections of full-width qwen2.5-1.5b (28 layers x q, k, v, o, gate,
    up; the f32 weights the serve quantizes, seed 0); codes and scales
    exactly equal to the plain version, >= 99.9% of 4-bit codes equal to
    the offline quantizer's, and each leaf through K3 at M = 8 against
    ``dequant_matmul_ref``; each projection shape timed beside an empty
    kernel on its grid and on one block (the launch floor);
-8. ``profile``: where a decode step's time goes, under ``torch.profiler``,
+9. ``profile``: where a decode step's time goes, under ``torch.profiler``,
    with K3's and K1/K2's device ms per decode step.
 
-Phases 6 and 7 reset the counters, drive their entry point once per case,
+Phases 7 and 8 reset the counters, drive their entry point once per case,
 and read the counts before any comparison or timing launches.  Then a
 ``{"kernels": [...]}`` line (each row's ``launches`` from the run of its
 own path or phase), the nvidia-smi line, and last
@@ -90,10 +103,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-
-# published H100 SXM peaks (dense): HBM bytes/s and FLOP/s by input type
-PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 
 PAGED_SRC = "src/repro_torch/kernels/csrc/paged_attention.cu"
 GEMM_SRC = "src/repro_torch/kernels/csrc/lut_dequant_gemm.cu"
@@ -187,8 +196,13 @@ def time_ms_cold(fns) -> float:
 
 
 def bound(nbytes: float, flops: float, dtype: str):
-    t_bytes = nbytes / PEAK_BYTES
-    t_ops = flops / PEAK_FLOPS[dtype]
+    """(ms, what bounds it) at the H100's published dense peaks, the
+    constants ``kernels/autotune.roofline_bound_s`` (the profiler's
+    bound) reads."""
+    from repro_torch.kernels import autotune as A
+
+    t_bytes = nbytes / A.HBM_BW
+    t_ops = flops / A.PEAK_FLOPS_BY_DTYPE[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -243,19 +257,59 @@ def paged_case(kind: str, dtype, seed: int):
     return (q, pools[0], pools[1], table.cuda(), lens.cuda())
 
 
+# the bytes and operations of each kernel's bound come from the cost
+# models the profiler's roofline bound reads (kernels/autotune.py), at
+# this run's inputs
+
+
 def paged_bytes_flops(q, k_pool, table, lens, window: int):
+    """K1/K2 over the tokens this input's rows attend (``paged_attn_cost``
+    with the live count): q read and out written, K and V slabs in pool
+    storage, the table and lengths."""
+    from repro_torch.kernels import autotune as A
+    from repro_torch.kernels import ops
+
     B, Hkv, G, D = q.shape
-    if isinstance(k_pool, dict):
-        c, s = k_pool["codes"], k_pool["scales"]
-        slab = (c.shape[-2] * c.shape[-1] * c.element_size()
-                + s.shape[-2] * s.shape[-1] * s.element_size())
-    else:
-        slab = Hkv * D * k_pool.element_size()
     toks = [min(int(n), window) if window > 0 else int(n)
             for n in lens.tolist()]
-    qo = 2 * q.numel() * q.element_size()  # q read + out written
-    nbytes = qo + 2 * sum(toks) * slab + table.numel() * 4 + lens.numel() * 4
-    flops = 4.0 * Hkv * G * D * sum(toks)  # QK^T and P.V
+    leaf = k_pool["codes"] if isinstance(k_pool, dict) else k_pool
+    flops, nbytes = A.paged_attn_cost(
+        B, Hkv * G, table.shape[1], leaf.shape[1], D,
+        slab_bytes=ops.pool_slab_bytes(k_pool), q_bytes=q.element_size(),
+        tokens=sum(toks))
+    return nbytes, flops
+
+
+def gemm_bytes_flops(x, qw):
+    """K3 (``gemm_cost``): x read and out written in x's dtype, the packed
+    codes, the f16 scales and the codebook."""
+    from repro_torch.kernels import autotune as A
+
+    codes, scales = qw["codes"], qw["scales"]
+    flops, nbytes = A.gemm_cost(
+        x.shape[0], codes.shape[0], codes.shape[1] * 2,
+        x_bytes=x.element_size(),
+        scale_bytes=scales.numel() * scales.element_size())
+    return nbytes, flops
+
+
+def dequant_kv_bytes_flops(q, mode: str, gr: int, gc: int):
+    """K4 (``dequant_kv_cost``): codes, f16 scales and the codebook in,
+    f32 out."""
+    from repro_torch.kernels import autotune as A
+
+    R, H = q["codes"].shape[:2]
+    D = q["scales"].shape[-1] * gc
+    flops, nbytes = A.dequant_kv_cost(R, H, D, mode, gr=gr, gc=gc)
+    return nbytes, flops
+
+
+def quantize_bytes_flops(K: int, N: int):
+    """K6 (``quantize_cost``): the f32 weight in, packed codes and the
+    (K / 2, N / 16) f16 tile scales out."""
+    from repro_torch.kernels import autotune as A
+
+    flops, nbytes = A.quantize_cost(K, N, scale_bytes=K * N // 16)
     return nbytes, flops
 
 
@@ -420,8 +474,8 @@ def check_gemm_kernel(results: list, gemm_m: dict) -> None:
         lib_cold = time_ms_cold([(lambda w=w: torch.matmul(x, w))
                                  for w in rot])
         del rot
-        nbytes = x.numel() * 2 + wbytes + 64 + M * N * 2
-        b_ms, b_by = bound(nbytes, 2.0 * M * K * N, "bfloat16")
+        nbytes, flops = gemm_bytes_flops(x, qw)
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
         pl = G.plan(M, K, N, torch.bfloat16)
         row = {"name": f"lut_dequant_gemm/M{M}xK{K}xN{N}", "route": "cuda",
                "source": GEMM_SRC, "replaces": REPLACES["lut_dequant_gemm"],
@@ -476,9 +530,8 @@ def check_dequant_kv_kernel(results: list, kv_r: dict) -> None:
                      max_abs_err=0.0)
                 continue
             run = lambda: LK.lut_dequant_kv(*args, **kw)
-            nbytes = (q["codes"].numel() + q["scales"].numel() * 2 + 64
-                      + R * Hkv * D * 4)
-            b_ms, b_by = bound(nbytes, float(R * Hkv * D), "float32")
+            b_ms, b_by = bound(*dequant_kv_bytes_flops(q, mode, gr, gc),
+                               "float32")
             row = {"name": f"lut_dequant_kv/{mode}/R{R}", "route": "cuda",
                    "source": DEQUANT_SRC,
                    "replaces": REPLACES["lut_dequant_kv"], "max_abs_err": 0.0,
@@ -671,7 +724,6 @@ def quantize_phase(results: list, dev: str = "cuda",
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import tile_quantize as TK
-    from repro_torch.kernels.autotune import quantize_cost
     from repro_torch.models import transformer as TR
     from repro_torch.quant import tile_quant as TQ
 
@@ -722,9 +774,7 @@ def quantize_phase(results: list, dev: str = "cuda",
     floors = {}
     for K, N in sorted(by_shape):
         w = next(w for w in weights if tuple(w.shape) == (K, N))
-        flops, nbytes = quantize_cost(K, N)  # f32 weight in, codes out
-        # and the (K / 2, N / 16) fp16 scales out: K N / 16 bytes
-        b_ms, b_by = bound(nbytes + K * N // 16, flops, "float32")
+        b_ms, b_by = bound(*quantize_bytes_flops(K, N), "float32")
         run = lambda: TK.tile_quantize(w)
         floors[f"{K}x{N}"] = time_ms(lambda: TK.empty_launch(w))
         row = {"name": f"tile_quantize/K{K}xN{N}", "route": "cuda",
@@ -1278,6 +1328,262 @@ def serve_runs(n_layers: int = 28) -> dict:
     return runs, spec
 
 
+# ---------------------------------------------------------------------------
+# observability: the request tracer and the kernel profiler on the serve
+# ---------------------------------------------------------------------------
+
+# Best-of-8 over 2 tasks x 48 tokens (the serve phase's 4 tasks cut to 2
+# to hold the phase near 90 s; width untouched).  Each entry: (name, kv,
+# impl, extra serve arguments, tracer, profiler's canary rate or None for
+# no profiler).  Q8/exact runs four times in turns, off / on / off / on,
+# for the cost of observability within one call, then once with the
+# canary off, to split that cost; Q4/LUT with both on, where the canary
+# measures the LUT softmax's drift over Q4 KV; q8/prefix with both on
+# (cache-hit admission steps); spec/self with the tracer (a round's
+# verify against the rest).
+OBSERVE_ARGS = SERVE_ARGS + ["--tasks", "2"]
+CANARY_RATE = 0.25
+OBSERVE_RUNS = (
+    ("q8/exact/off", "q8", "exact", [], False, None),
+    ("q8/exact/on", "q8", "exact", [], True, CANARY_RATE),
+    ("q8/exact/off", "q8", "exact", [], False, None),
+    ("q8/exact/on", "q8", "exact", [], True, CANARY_RATE),
+    ("q8/exact/on-no-canary", "q8", "exact", [], True, 0.0),
+    ("q4/lut/on", "q4", "lut", [], True, CANARY_RATE),
+    ("q8/prefix/on", "q8", "exact", ["--prefix-cache", "--fewshot", "3"],
+     True, CANARY_RATE),
+    ("spec/self/trace", "q8", "exact", ["--spec-k", "4", "--self-draft"],
+     True, None),
+)
+SPAN_KEYS = ("admit", "prefill", "plan", "decode", "step", "prm",
+             "spec_verify")
+
+
+def _ms_stats(durs_us: list) -> dict:
+    import numpy as np
+
+    if not durs_us:
+        return {"n": 0, "total_ms": 0.0, "p50_ms": 0.0}
+    return {"n": len(durs_us), "total_ms": sum(durs_us) / 1e3,
+            "p50_ms": float(np.percentile(durs_us, 50)) / 1e3}
+
+
+def trace_stats(trace: dict) -> dict:
+    """Per-span-name totals and p50 from a Chrome trace's phase track; the
+    admission steps (those whose admit span admitted a request): their
+    step spans beside the other steps', and their admit and decode spans
+    apart (a canary step's decode span holds the canary); the prefills by
+    cache hit."""
+    spans = [e for e in trace["traceEvents"] if e["ph"] == "X"
+             and e["tid"] == 0]
+    by_name = {n: _ms_stats([e["dur"] for e in spans if e["name"] == n])
+               for n in SPAN_KEYS}
+    admitting = {e["args"]["step"] for e in spans if e["name"] == "admit"
+                 and e["args"].get("admitted", 0) > 0}
+
+    def of(name, inside):
+        return _ms_stats([e["dur"] for e in spans if e["name"] == name
+                          and (e["args"]["step"] in admitting) == inside])
+
+    return {
+        "spans": by_name,
+        "admission_step": of("step", True),
+        "admission_admit": of("admit", True),
+        "admission_decode": of("decode", True),
+        "other_step": of("step", False),
+        "prefill_hit": _ms_stats([e["dur"] for e in spans
+                                  if e["name"] == "prefill"
+                                  and e["args"].get("cached")]),
+        "prefill_miss": _ms_stats([e["dur"] for e in spans
+                                   if e["name"] == "prefill"
+                                   and not e["args"].get("cached")]),
+    }
+
+
+def observe_runs(n_layers: int = 28) -> list:
+    """Serve through ``launch/serve.py`` with ``--trace`` and ``--profile
+    --canary-rate`` (or neither) per ``OBSERVE_RUNS``, the counters
+    reset just before each run and read just after, and the launches of
+    the canary's exact-path replica (hook muted) recorded apart by
+    wrapping ``DecodeEngine._canary_step``.  Each traced run's trace and
+    report, written under ``build/observe/``, must pass the port's
+    validators; a profiled run's per-op calls must equal the launch
+    counters less the canary's (28 paged attention per decode step, 168
+    K3 per decode step, prefill and verify, 2 K4 per partial prefill),
+    the canary (where on) must launch 168 K3 and no paged attention per
+    sample; a
+    speculative run must record one ``spec_verify`` span per round.
+    Decode tok/s is the scheduler's (decode tokens over its step walls)
+    and the wall's (over the time from the engine's build to the serve's
+    end).  Prints one ``observe`` line per run and an ``observe_cost``
+    line.  Returns the runs' lines."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.serving.engine import DecodeEngine
+    from repro_torch.serving.profiling import validate_profile_report
+    from repro_torch.serving.telemetry import validate_chrome_trace
+
+    out_dir = ROOT / "build" / "observe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    orig_build = serve.build_engine
+    orig_canary = DecodeEngine._canary_step
+    lines = []
+    for i, (name, kv, impl, extra, traced, canary_rate) in enumerate(
+            OBSERVE_RUNS):
+        profiled = canary_rate is not None
+        args = OBSERVE_ARGS + ["--kv-quant", kv] + extra
+        tag = f"{i}_{name.replace('/', '_')}"
+        trace_path, report_path = (out_dir / f"{tag}.trace.json",
+                                   out_dir / f"{tag}.profile.json")
+        if traced:
+            args += ["--trace", str(trace_path)]
+        if profiled:
+            args += ["--profile", str(report_path), "--canary-rate",
+                     str(canary_rate)]
+        built = {}
+        canary = []
+
+        def building(a):
+            engine, tok = orig_build(a)
+            torch.cuda.synchronize()
+            built["t0"] = time.perf_counter()
+            return engine, tok
+
+        def canary_step(self, *a, **kw):
+            before = ops.launch_counts()
+            try:
+                return orig_canary(self, *a, **kw)
+            finally:
+                after = ops.launch_counts()
+                canary.append({k: after[k] - before[k] for k in after})
+
+        prev = L.set_paged_attention_impl(impl)
+        serve.build_engine = building
+        DecodeEngine._canary_step = canary_step
+        try:
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            rows = serve.main(args)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            counts = ops.launch_counts()
+        finally:
+            serve.build_engine = orig_build
+            DecodeEngine._canary_step = orig_canary
+            L.set_paged_attention_impl(prev)
+        s = rows[0]["serving"]
+        in_canary = {k: sum(c[k] for c in canary) for k in counts}
+        attn = "quant_paged_attention"
+        line = {"path": name, "kv_quant": kv, "impl": impl,
+                "tracer": traced, "profiler": profiled,
+                "canary_rate": canary_rate,
+                "steps": s["steps"], "decode_tokens": s["decode_tokens"],
+                "decode_tok_per_s": s["decode_tok_per_s"],
+                "decode_tok_per_s_wall": s["decode_tokens"] / (
+                    t1 - built["t0"]),
+                "step_time_p50_ms": s["step_time_p50"] * 1e3,
+                "step_time_p99_ms": s["step_time_p99"] * 1e3,
+                "prefill_calls": s["prefill_calls"],
+                "launches": counts}
+        # every path's kernels: 28 attention launches per decode step on
+        # the target (a self-draft round's snapshot steps included) and
+        # none elsewhere; K3 and K4 checked through the profile below
+        if traced:
+            trace = json.loads(trace_path.read_text())
+            bad = validate_chrome_trace(trace)
+            if bad:
+                raise AssertionError(f"observe {name}: invalid trace: "
+                                     f"{bad[:3]}")
+            line.update(trace_stats(trace))
+            line.update({k: s[k] * 1e3 for k in (
+                "ttft_p50", "ttft_p99", "itl_p50", "itl_p99",
+                "queue_wait_p50", "queue_wait_p99")})
+            line["latency_requests"] = s["latency_requests"]
+            if line["latency_requests"] != 2:
+                raise AssertionError(f"observe {name}: "
+                                     f"{line['latency_requests']} latency "
+                                     f"records for 2 requests")
+        if s["spec_rounds"]:
+            dec = line["spans"]["decode"]["total_ms"]
+            ver = line["spans"]["spec_verify"]
+            line.update(spec_rounds=s["spec_rounds"],
+                        verify_share_of_rounds=ver["total_ms"] / dec,
+                        accepted_tokens_per_step=s[
+                            "accepted_tokens_per_step"])
+            if ver["n"] != s["spec_rounds"] or \
+                    counts["lut_dequant_kv"] != 2 * s["spec_rounds"]:
+                raise AssertionError(
+                    f"observe {name}: {ver['n']} spec_verify spans, "
+                    f"{counts['lut_dequant_kv']} K4 launches for "
+                    f"{s['spec_rounds']} rounds")
+        if profiled:
+            rep = json.loads(report_path.read_text())
+            bad = validate_profile_report(rep)
+            if bad:
+                raise AssertionError(f"observe {name}: invalid report: "
+                                     f"{bad[:3]}")
+            k, ph = rep["kernels"], rep["phases"]
+            fwd = sum(ph.get(p, {}).get("calls", 0)
+                      for p in ("decode", "prefill", "spec_verify"))
+            want = {
+                "paged_flash_decode": (counts[attn] - in_canary[attn],
+                                       n_layers * ph["decode"]["calls"]),
+                "lut_dequant_matmul": (
+                    counts["lut_dequant_gemm"]
+                    - in_canary["lut_dequant_gemm"], 6 * n_layers * fwd),
+                "lut_dequant_kv": (counts["lut_dequant_kv"]
+                                   - in_canary["lut_dequant_kv"],
+                                   counts["lut_dequant_kv"]),
+            }
+            for op, (launched, per_phase) in want.items():
+                calls = k.get(op, {}).get("calls", 0)
+                if not calls == launched == per_phase:
+                    raise AssertionError(
+                        f"observe {name}: {op} {calls} hooked calls, "
+                        f"{launched} launches outside the canary, "
+                        f"{per_phase} by phase")
+            n_can = s["canary_samples"]
+            if n_can != len(canary) or (n_can < 1) != (canary_rate == 0) or \
+                    in_canary[attn] != 0 or \
+                    in_canary["lut_dequant_gemm"] != 6 * n_layers * n_can:
+                raise AssertionError(f"observe {name}: canary {n_can} "
+                                     f"samples, launches {in_canary}")
+            line.update(
+                kernel_time_share=s["kernel_time_share"],
+                roofline_efficiency_p50=s["roofline_efficiency_p50"],
+                ops={op: {"calls": v["calls"],
+                          "bound_ms": v["bound_s"] * 1e3,
+                          "wall_ms": v["wall_s"] * 1e3,
+                          "efficiency": v["efficiency"]}
+                     for op, v in k.items()},
+                phases={p: {"calls": v["calls"], "wall_ms": v["wall_s"] * 1e3,
+                            "bound_ms": v["bound_s"] * 1e3,
+                            "efficiency_p50": v["efficiency_p50"]}
+                        for p, v in ph.items()},
+                canary={"samples": n_can, "rows": rep["canary"]["rows"],
+                        "max_logit_err": s["canary_max_logit_err"],
+                        "argmax_flip_rate": s["canary_argmax_flip_rate"],
+                        "kv_roundtrip_err": s["canary_kv_roundtrip_err"],
+                        "warnings": rep["canary"]["warnings"]},
+                canary_launches=in_canary)
+        elif counts[attn] != n_layers * s["steps"] and not s["spec_rounds"]:
+            raise AssertionError(f"observe {name}: {counts[attn]} attention "
+                                 f"launches for {s['steps']} steps")
+        emit("observe", **line)
+        lines.append(line)
+    flags = ("off", "on", "on-no-canary")
+    q8 = {flag: [ln for ln in lines if ln["path"] == f"q8/exact/{flag}"]
+          for flag in flags}
+    emit("observe_cost", order=[ln["path"] for ln in lines[:5]], **{
+        f"{key}_{flag}": [ln[key] for ln in q8[flag]]
+        for key in ("decode_tok_per_s", "decode_tok_per_s_wall",
+                    "step_time_p50_ms") for flag in flags})
+    return lines
+
+
 def profile_decode() -> None:
     """Where a decode step's time goes at full width: one Best-of-8 task
     (Q8 KV, exact softmax) served under ``torch.profiler``; device busy
@@ -1390,6 +1696,7 @@ def main() -> int:
     reference_check()
     runs, spec = serve_runs()
     spec_parity(spec, spec.pop("eos_id"))
+    observe_runs()
     # K3 and K4 at the shapes the serve runs launched them with: K3's M on
     # the north-star path (8 decode slots, a Best-of-N group's padded
     # prompt), on the prefix paths (each prefill's batch x its longest

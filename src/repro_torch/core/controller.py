@@ -19,7 +19,10 @@ Serving rows carry ``SchedulerMetrics.summary()`` under ``"serving"``
 ``spec_rounds``, ``draft_tokens``, ``spec_acceptance_rate`` and
 ``accepted_tokens_per_step``) plus the paged pool's accounting under
 ``"serving"]["kv"]`` and, with a prefix cache, the cache's interval stats
-under ``"serving"]["prefix_cache"]``.
+under ``"serving"]["prefix_cache"]``.  The summary's latency percentiles
+(``ttft_*``, ``itl_*``, ``queue_wait_*``) need a ``tracer=``, its
+profiler keys (``kernel_time_share``, ``roofline_efficiency_p50``,
+``canary_*``) a ``profiler=``; without them they are 0.
 """
 from __future__ import annotations
 
@@ -101,21 +104,25 @@ def serve_best_of_n(engine, tok, tasks: Sequence[T.MathTask], *, n: int,
                     max_tokens: int, rng: Optional[torch.Generator], scorer,
                     n_slots: int = 8, prompt_len: Optional[int] = None,
                     sc: SamplerConfig = SamplerConfig(temperature=0.8),
-                    prefix_cache=None, spec: Optional[SpecConfig] = None):
+                    prefix_cache=None, tracer=None, profiler=None,
+                    spec: Optional[SpecConfig] = None):
     """Best-of-N over a task set through the continuous-batching
     scheduler: one prefill per task, ``fork`` into ``n`` slots.
     ``prompt_len`` defaults to the longest prompt.  ``prefix_cache``: a
     :class:`~repro_torch.serving.prefix_cache.PrefixCache` over the
     engine's pool; tasks sharing a header then skip re-prefilling it.
-    ``spec``: speculative rounds (under greedy ``sc``).  Returns
-    {"method", "budget", "accuracy", "decode_tokens", "serving"}."""
+    ``tracer`` / ``profiler``: the scheduler's telemetry and kernel
+    profiler (None: off).  ``spec``: speculative rounds (under greedy
+    ``sc``).  Returns {"method", "budget", "accuracy", "decode_tokens",
+    "serving"}."""
     prompts = [torch.tensor(tok.encode(task.prompt), dtype=torch.int32)
                for task in tasks]
     if prompt_len is None:
         prompt_len = max((int(p.shape[0]) for p in prompts), default=1)
     sched = ContinuousScheduler(engine, n_slots=n_slots,
                                 prompt_len=prompt_len,
-                                prefix_cache=prefix_cache, spec=spec)
+                                prefix_cache=prefix_cache, tracer=tracer,
+                                profiler=profiler, spec=spec)
     cow_base = engine.pool.reset_peak()
     cache_base = prefix_cache.stats() if prefix_cache is not None else None
     for i, prompt in enumerate(prompts):
@@ -174,7 +181,8 @@ def serve_beam_search(engine, tok, tasks: Sequence[T.MathTask], *,
                       prm, n_slots: int = 8,
                       prompt_len: Optional[int] = None,
                       sc: SamplerConfig = SamplerConfig(temperature=0.8),
-                      prefix_cache=None, spec: Optional[SpecConfig] = None):
+                      prefix_cache=None, tracer=None, profiler=None,
+                      spec: Optional[SpecConfig] = None):
     """Step-level PRM beam search over a task set through the continuous
     scheduler (the served counterpart of ``core.beam_search``).
 
@@ -195,7 +203,8 @@ def serve_beam_search(engine, tok, tasks: Sequence[T.MathTask], *,
     n_slots = max(n_slots, fan)
     sched = ContinuousScheduler(engine, n_slots=n_slots,
                                 prompt_len=prompt_len,
-                                prefix_cache=prefix_cache, spec=spec)
+                                prefix_cache=prefix_cache, tracer=tracer,
+                                profiler=profiler, spec=spec)
     cow_base = engine.pool.reset_peak()
     cache_base = prefix_cache.stats() if prefix_cache is not None else None
     dot_id = int(tok.encode(".", bos=False)[0])
@@ -241,6 +250,7 @@ def serve_beam_search(engine, tok, tasks: Sequence[T.MathTask], *,
 def sweep(engine, tok, tasks: Sequence[T.MathTask], specs: Sequence[TTSSpec],
           rng: Optional[torch.Generator], scorer, *,
           continuous: bool = False, n_slots: int = 8, prefix_cache=None,
+          tracer=None, profiler=None,
           spec_decode: Optional[SpecConfig] = None,
           sc: Optional[SamplerConfig] = None):
     """Accuracy / decode cost for each spec — one row per Pareto point.
@@ -253,9 +263,10 @@ def sweep(engine, tok, tasks: Sequence[T.MathTask], specs: Sequence[TTSSpec],
     generator ``rng`` feeds every row in turn.  ``sc`` (None: the
     scheduler's default sampler) reaches the scheduler rows only; direct
     rows sample with their method's default, as the JAX package's
-    ``sweep`` does.  ``spec_decode`` (continuous rows) enables
-    speculative rounds; they fire only under greedy sampling, so pass
-    ``sc=SamplerConfig(greedy=True)`` with it."""
+    ``sweep`` does.  ``tracer`` and ``profiler`` (continuous rows only)
+    are shared by every row's scheduler.  ``spec_decode`` (continuous
+    rows) enables speculative rounds; they fire only under greedy
+    sampling, so pass ``sc=SamplerConfig(greedy=True)`` with it."""
     sc_kwargs = {} if sc is None else {"sc": sc}
     rows = []
     for spec in specs:
@@ -264,7 +275,8 @@ def sweep(engine, tok, tasks: Sequence[T.MathTask], specs: Sequence[TTSSpec],
                 engine, tok, tasks, n=spec.budget,
                 max_tokens=spec.max_tokens, rng=rng, scorer=scorer,
                 n_slots=max(n_slots, spec.budget),
-                prefix_cache=prefix_cache, spec=spec_decode, **sc_kwargs))
+                prefix_cache=prefix_cache, tracer=tracer, profiler=profiler,
+                spec=spec_decode, **sc_kwargs))
             continue
         if continuous and spec.method == "beam_search":
             width, expand = spec.beam_shape()
@@ -272,7 +284,8 @@ def sweep(engine, tok, tasks: Sequence[T.MathTask], specs: Sequence[TTSSpec],
                 engine, tok, tasks, width=width, expand=expand,
                 step_tokens=spec.step_tokens, max_steps=spec.beam_steps,
                 rng=rng, prm=scorer, n_slots=max(n_slots, width * expand),
-                prefix_cache=prefix_cache, spec=spec_decode, **sc_kwargs))
+                prefix_cache=prefix_cache, tracer=tracer, profiler=profiler,
+                spec=spec_decode, **sc_kwargs))
             continue
         correct = cost = 0
         for task in tasks:

@@ -4,10 +4,13 @@ The wrappers in ``paged_attention``, ``lut_dequant_gemm``,
 ``lut_dequant_kv``, ``lut_softmax_attention`` and ``tile_quantize`` launch
 the CUDA kernels for CUDA tensors and run their plain versions for CPU
 tensors; this module adapts the model's layouts to them, holds the
-per-device constant tables (the exp LUT, the q4 codebook) and reads or
-resets the wrappers' launch counters.
+per-device constant tables (the exp LUT, the q4 codebook), reads or
+resets the wrappers' launch counters, and reports each call's analytic
+cost to an installable hook (:func:`set_op_hook`).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -34,6 +37,49 @@ _BY_SHAPE = (_gemm.lut_dequant_gemm, _dequant_kv.lut_dequant_kv,
              _attn.lut_softmax_attention, _tq.tile_quantize)
 
 _TABLES: dict = {}
+
+# Kernel-dispatch recording hook (serving/profiling.KernelProfiler).
+# ``hook(name, flops, hbm_bytes)`` fires once per wrapper call with the
+# analytic cost from ``kernels/autotune``, under the JAX package's op
+# names.  PyTorch runs eagerly, so it fires on every dispatch (the JAX
+# package's fires once per trace).  None, the default, costs one ``is not
+# None`` test per call: no cost is computed and nothing is built.
+_OP_HOOK = None
+
+
+def set_op_hook(hook):
+    """Install the dispatch-layer cost hook; returns the previous one so
+    callers can restore it (``set_op_hook(None)`` disables)."""
+    global _OP_HOOK
+    prev, _OP_HOOK = _OP_HOOK, hook
+    return prev
+
+
+def op_hook():
+    """The installed hook, or None: dispatch sites outside this module
+    test it before computing a cost."""
+    return _OP_HOOK
+
+
+def record_op(name: str, flops: float, hbm_bytes: float) -> None:
+    """Report one op's analytic (flops, hbm_bytes) to the installed hook.
+    Public so dispatch sites outside this module (the plain paged
+    attention of ``layers.paged_decode_attention``) attribute through the
+    same funnel."""
+    if _OP_HOOK is not None:
+        _OP_HOOK(name, float(flops), float(hbm_bytes))
+
+
+def pool_slab_bytes(pool_leaf) -> float:
+    """Storage bytes of one token's (Hkv, D) slab in a per-layer pool leaf
+    ``(n_blocks, bs, Hkv, D)``: codes + scales for quantized {"codes",
+    "scales"} leaves, dtype bytes for fp tensors."""
+    if isinstance(pool_leaf, dict):
+        c, s = pool_leaf["codes"], pool_leaf["scales"]
+        return float(c.shape[-2] * c.shape[-1] * c.element_size()
+                     + s.shape[-2] * s.shape[-1] * s.element_size())
+    return float(pool_leaf.shape[-2] * pool_leaf.shape[-1]
+                 * pool_leaf.element_size())
 
 
 def _table(name: str, device: torch.device, build):
@@ -80,6 +126,12 @@ def lut_dequant_matmul(x: torch.Tensor, qw: dict, *,
                        group_size: int = 32) -> torch.Tensor:
     """x: (M, K) @ dequant(qw) for a Q4 leaf {"codes", "scales",
     "codebook"} -> (M, N) in x.dtype."""
+    if _OP_HOOK is not None:
+        codes, scales = qw["codes"], qw["scales"]
+        record_op("lut_dequant_matmul", *_autotune.gemm_cost(
+            x.shape[0], codes.shape[0], codes.shape[1] * 2,
+            x_bytes=x.element_size(),
+            scale_bytes=scales.numel() * scales.element_size()))
     return _gemm.lut_dequant_gemm(
         x.contiguous(), qw["codes"], qw["scales"], qw["codebook"],
         scheme=TQ.infer_scheme(qw, group_size), group_size=group_size)
@@ -101,6 +153,9 @@ def lut_dequant_gather(gathered):
     mode, gr, gc, d = kv_geometry(gathered)
     codes, scales = gathered["codes"], gathered["scales"]
     lead = codes.shape[:-2]
+    if _OP_HOOK is not None:
+        record_op("lut_dequant_kv", *_autotune.dequant_kv_cost(
+            math.prod(lead), codes.shape[-2], d, mode, gr=gr, gc=gc))
     out = _dequant_kv.lut_dequant_kv(
         codes.reshape(-1, *codes.shape[-2:]),
         scales.reshape(-1, *scales.shape[-2:]), q4_codebook(codes.device),
@@ -120,6 +175,11 @@ def paged_flash_decode(q, k_pool, v_pool, table, cache_len, *,
     B, _, Hq, D = q.shape
     quantized = isinstance(k_pool, dict)
     Hkv = (k_pool["codes"] if quantized else k_pool).shape[2]
+    if _OP_HOOK is not None:
+        leaf = k_pool["codes"] if quantized else k_pool
+        record_op("paged_flash_decode", *_autotune.paged_attn_cost(
+            B, Hq, table.shape[1], leaf.shape[1], D,
+            slab_bytes=pool_slab_bytes(k_pool), q_bytes=q.element_size()))
     qg = q.reshape(B, Hkv, Hq // Hkv, D).contiguous()
     lut = exp_lut(q.device) if exp_mode == "lut" else None
     if quantized:
@@ -146,6 +206,9 @@ def flash_attention(q, k, v, *, causal: bool = True, exp_mode: str = "lut",
     _, Skv, Hkv, _ = k.shape
     if Hq % Hkv:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    if _OP_HOOK is not None:
+        record_op("flash_attention",
+                  *_autotune.attn_cost(B * Hq, Sq, Skv, D))
 
     def heads_first(x, S, H):
         return x.transpose(1, 2).reshape(B * H, S, D).to(
@@ -165,6 +228,10 @@ def tile_quantize_op(w: torch.Tensor, *, group_size: int = 32) -> dict:
     takes."""
     from repro_torch.quant.codebooks import get_codebook
 
+    if _OP_HOOK is not None:
+        K, N = w.shape
+        record_op("tile_quantize", *_autotune.quantize_cost(
+            K, N, scale_bytes=K * N // (group_size // 2)))
     codes, scales = _tq.tile_quantize(w, group_size=group_size)
     return {"codes": codes, "scales": scales,
             "codebook": get_codebook("q4_0", device=w.device)}

@@ -9,13 +9,18 @@ unless asked otherwise.
   ... --method beam_search --beam-width 2 --beam-expand 4 --beam-steps 4 \\
       --step-tokens 8 --paged [--continuous]
   ... --continuous --paged --spec-k 4 [--self-draft | --draft-model ARCH]
+  ... --continuous --paged --kv-quant q8 --trace trace.json \\
+      --profile profile.json [--canary-rate 0.25] [--metrics]
 
 ``--continuous`` serves Best-of-N and beam search through the slot
 scheduler; without it (and always for self-consistency) each task runs
 the direct path: one prefill, fork, generate.  ``--spec-k`` turns each
 scheduler step into a draft-then-verify round (greedy sampling forced),
-drafted by the target itself or by a small registry model.  Weights are
-random, from a
+drafted by the target itself or by a small registry model.  ``--trace``
+writes the scheduler's Chrome trace (validate it with ``python -m
+repro_torch.serving.telemetry``), ``--profile`` the kernel profile with
+its numerics canary (``python -m repro_torch.serving.profiling``), and
+``--metrics`` prints every summary key.  Weights are random, from a
 seeded generator (the repository ships no checkpoint).  ``--smoke``
 selects the reduced config; ``--device cpu`` runs the kernels' plain
 versions on the CPU.  The paged-attention exp mode comes from
@@ -24,6 +29,7 @@ versions on the CPU.  The paged-attention exp mode comes from
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Optional
 
 import torch
@@ -38,7 +44,9 @@ from repro_torch.models import api
 from repro_torch.quant.qlinear import cast_params, quantize_model_params
 from repro_torch.serving.engine import DecodeEngine, SpecConfig
 from repro_torch.serving.prefix_cache import PrefixCache
+from repro_torch.serving.profiling import KernelProfiler
 from repro_torch.serving.sampler import SamplerConfig
+from repro_torch.serving.telemetry import Tracer
 
 MAX_LEN = 256
 
@@ -107,6 +115,32 @@ def parse_args(argv=None):
     ap.add_argument("--self-draft", action="store_true",
                     help="draft with the target itself on a forked "
                          "(copy-on-write) snapshot of its paged state")
+    ap.add_argument("--trace", default="",
+                    help="write a Chrome-trace-event JSON of the request "
+                         "lifecycle (slots as tracks, scheduler/engine "
+                         "phase spans as nested slices, pool gauges as "
+                         "counters) to this path; open it at "
+                         "https://ui.perfetto.dev; requires --continuous")
+    ap.add_argument("--profile", default="",
+                    help="write a roofline-attributed kernel-profile JSON "
+                         "report (per-kernel analytic FLOPs/HBM bytes vs "
+                         "sampled measured wall time, prefill/decode cost "
+                         "breakdown, canary drift gauges) to this path; "
+                         "validate with `python -m "
+                         "repro_torch.serving.profiling PATH`; requires "
+                         "--continuous")
+    ap.add_argument("--canary-rate", type=float, default=0.25,
+                    help="fraction of decode steps the profiler re-runs "
+                         "through the exact path (plain paged attention, "
+                         "the pool's plain dequant, f32 softmax) to "
+                         "measure max logit error / argmax flip rate / KV "
+                         "round-trip drift online (0 disables; only "
+                         "active with --profile)")
+    ap.add_argument("--metrics", action="store_true",
+                    help="print every serving row's full "
+                         "SchedulerMetrics.summary() dict (all latency "
+                         "percentiles included) beside the one-line "
+                         "summaries; requires --continuous")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the "
                          "kernels' plain versions)")
@@ -131,6 +165,13 @@ def parse_args(argv=None):
     if (args.draft_model or args.self_draft) and not args.spec_k:
         raise SystemExit("--draft-model/--self-draft need --spec-k K "
                          "(the proposal budget per round)")
+    if (args.trace or args.metrics) and not args.continuous:
+        raise SystemExit("--trace/--metrics require --continuous (the "
+                         "tracer records the scheduler's request "
+                         "lifecycle)")
+    if args.profile and not args.continuous:
+        raise SystemExit("--profile requires --continuous (the profiler "
+                         "samples the scheduler's decode steps)")
     if args.spec_k and not args.continuous:
         raise SystemExit("--spec-k requires --paged --continuous "
                          "(draft lanes and rejected suffixes are refcount "
@@ -211,12 +252,40 @@ def main(argv=None) -> list:
         print(f"[serve] speculative decoding: k={args.spec_k} "
               f"{'draft=' + args.draft_model if args.draft_model else 'self-draft'}"
               f" (greedy sampling forced)")
+    tracer = Tracer() if args.trace or args.metrics else None
+    profiler = (KernelProfiler(canary_rate=args.canary_rate)
+                if args.profile else None)
     gen = torch.Generator(device=engine.device)
     gen.manual_seed(0)
-    rows = sweep(engine, tok, tasks, [spec_of(args)], gen,
-                 R.OracleVerifier(), continuous=args.continuous,
-                 n_slots=args.slots, prefix_cache=prefix_cache,
-                 spec_decode=spec_decode, sc=sc)
+    try:
+        rows = sweep(engine, tok, tasks, [spec_of(args)], gen,
+                     R.OracleVerifier(), continuous=args.continuous,
+                     n_slots=args.slots, prefix_cache=prefix_cache,
+                     tracer=tracer, profiler=profiler,
+                     spec_decode=spec_decode, sc=sc)
+    finally:
+        if profiler is not None:
+            profiler.uninstall()
+    for path in (args.trace, args.profile):
+        if path:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    if args.trace:
+        tracer.write_chrome_trace(args.trace)
+        print(f"[serve] trace: {len(tracer.events)} events / "
+              f"{len(tracer.spans)} spans -> {args.trace} "
+              f"(load in https://ui.perfetto.dev)")
+    if profiler is not None:
+        profiler.write_report(args.profile)
+        ps = profiler.summary_metrics()
+        print(f"[serve] profile: {len(profiler.report()['kernels'])} "
+              f"kernels, kernel_time_share={ps['kernel_time_share']:.3f} "
+              f"eff_p50={ps['roofline_efficiency_p50']:.3g} "
+              f"canary_samples={ps['canary_samples']} "
+              f"flip_rate={ps['canary_argmax_flip_rate']:.3g} "
+              f"max_logit_err={ps['canary_max_logit_err']:.3g} "
+              f"-> {args.profile}")
+        for w in profiler.warnings:
+            print(f"[serve] profile WARNING: {w}")
     # leak check: after a full drain the pool holds only the prefix
     # cache's pins
     pinned = (prefix_cache.stats()["cached_blocks"]
@@ -236,6 +305,9 @@ def main(argv=None) -> list:
             continue
         s = r["serving"]
         kv = s["kv"]
+        if args.metrics:
+            for k in sorted(s):
+                print(f"[serve]   {k}={s[k]}")
         print(f"[serve] continuous: slots={s['n_slots']} "
               f"occupancy={s['avg_slot_occupancy']:.2f} "
               f"requests_per_s={s['requests_per_s']:.2f} "
@@ -245,8 +317,16 @@ def main(argv=None) -> list:
               f"calls_per_request={s['prefill_calls_per_request']:.2f} "
               f"admission_batch_max={s['admission_batch_max']} "
               f"preemptions={s['preemptions']}")
-        print(f"[serve] latency: step_time_p50={s['step_time_p50'] * 1e3:.1f}"
-              f"ms step_time_p99={s['step_time_p99'] * 1e3:.1f}ms")
+        # ttft / itl / queue_wait come from the tracer's per-request
+        # records (0 without --trace/--metrics); step_time needs no tracer
+        print(f"[serve] latency: "
+              f"ttft_p50={s['ttft_p50'] * 1e3:.1f}ms "
+              f"ttft_p99={s['ttft_p99'] * 1e3:.1f}ms "
+              f"itl_p50={s['itl_p50'] * 1e3:.1f}ms "
+              f"itl_p99={s['itl_p99'] * 1e3:.1f}ms "
+              f"queue_wait_p99={s['queue_wait_p99'] * 1e3:.1f}ms "
+              f"step_time_p50={s['step_time_p50'] * 1e3:.1f}ms "
+              f"step_time_p99={s['step_time_p99'] * 1e3:.1f}ms")
         if s["spec_rounds"]:
             print(f"[serve] speculative: rounds={s['spec_rounds']} "
                   f"draft_tokens={s['draft_tokens']} "

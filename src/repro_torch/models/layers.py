@@ -139,19 +139,27 @@ def decode_attention(q, k_cache, v_cache, *, cache_len, window: int = 0,
 
 
 PAGED_ATTN_IMPLS = ("exact", "lut")
-_PAGED_ATTN_IMPL = os.environ.get("REPRO_TORCH_PAGED_ATTN", "exact")
+# the JAX package's "xla" branch: table gather, the pool's plain dequant,
+# f32 softmax in decode_attention.  Selectable only by name through
+# set_paged_attention_impl (the profiler's numerics canary); never the
+# default, and never what runs when a kernel fails.
+PLAIN_IMPL = "plain"
+_ENV_IMPL = os.environ.get("REPRO_TORCH_PAGED_ATTN", "exact")
+_PAGED_ATTN_IMPL = _ENV_IMPL if _ENV_IMPL in PAGED_ATTN_IMPLS else None
 
 
 def set_paged_attention_impl(impl: str) -> str:
-    """Select the exp mode of paged decode attention: ``"exact"`` (f32
-    online softmax) or ``"lut"`` (the paper's fp16 LUT softmax, Alg. 1).
-    Both run the paged-attention kernel on CUDA tensors and its plain
-    version on CPU tensors.  Returns the previous impl.  Also selectable
-    with the env var ``REPRO_TORCH_PAGED_ATTN``."""
+    """Select the paged decode attention: ``"exact"`` (f32 online
+    softmax) or ``"lut"`` (the paper's fp16 LUT softmax, Alg. 1), both
+    the paged-attention kernel on CUDA tensors and its plain version on
+    CPU tensors; or ``"plain"``, plain tensor ops on any device (the
+    canary's exact path).  Returns the previous impl.  ``exact`` and
+    ``lut`` are also selectable with the env var
+    ``REPRO_TORCH_PAGED_ATTN``."""
     global _PAGED_ATTN_IMPL
-    if impl not in PAGED_ATTN_IMPLS:
+    if impl not in PAGED_ATTN_IMPLS + (PLAIN_IMPL,):
         raise ValueError(f"unknown paged-attention impl {impl!r}; "
-                         f"expected one of {PAGED_ATTN_IMPLS}")
+                         f"expected one of {PAGED_ATTN_IMPLS + (PLAIN_IMPL,)}")
     prev, _PAGED_ATTN_IMPL = _PAGED_ATTN_IMPL, impl
     return prev
 
@@ -163,15 +171,50 @@ def paged_decode_attention(q, k_pool, v_pool, *, table, cache_len,
     q: (B, 1, Hq, D); pools: per-layer (n_blocks, bs, Hkv, D) tensors or
     quantized {"codes", "scales"} dicts; table: (B, W) int32 block ids;
     cache_len: (B,) int32 including the current token."""
-    impl = _PAGED_ATTN_IMPL
-    if impl not in PAGED_ATTN_IMPLS:
-        raise ValueError(f"unknown paged-attention impl {impl!r}; "
-                         f"expected one of {PAGED_ATTN_IMPLS}")
     from repro_torch.kernels import ops
 
+    impl = _PAGED_ATTN_IMPL
+    if impl == PLAIN_IMPL:
+        return _plain_paged_decode_attention(q, k_pool, v_pool, table,
+                                             cache_len, window, softcap)
+    if impl not in PAGED_ATTN_IMPLS:
+        raise ValueError(f"unknown paged-attention impl {_ENV_IMPL!r}; "
+                         f"expected one of {PAGED_ATTN_IMPLS}")
     return ops.paged_flash_decode(q, k_pool, v_pool, table, cache_len,
                                   window=window, softcap=softcap,
                                   exp_mode=impl)
+
+
+def _plain_paged_decode_attention(q, k_pool, v_pool, table, cache_len,
+                                  window, softcap):
+    """Gather each row's blocks into a contiguous (B, W bs, Hkv, D) view
+    (dequantized to f32 by the pool's plain ``dequantize_kv`` on a
+    quantized pool) and run :func:`decode_attention`: padding slots point
+    at the scratch block and lie past ``cache_len``, so its length mask
+    hides them.  Recorded as ``paged_attention_xla``, the JAX package's
+    name for the same branch."""
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.serving.kv_quant import dequantize_kv, pool_block_size
+
+    B, W = table.shape
+    bs = pool_block_size(k_pool)
+    if ops.op_hook() is not None:
+        ops.record_op("paged_attention_xla", *autotune.paged_attn_cost(
+            B, q.shape[2], W, bs, q.shape[3],
+            slab_bytes=ops.pool_slab_bytes(k_pool),
+            q_bytes=q.element_size()))
+    idx = table.long()
+
+    def gather(pool):
+        if isinstance(pool, dict):
+            seq = dequantize_kv({name: a[idx] for name, a in pool.items()})
+        else:
+            seq = pool[idx]
+        return seq.reshape(B, W * bs, *seq.shape[3:])
+
+    return decode_attention(q, gather(k_pool), gather(v_pool),
+                            cache_len=cache_len, window=window,
+                            softcap=softcap)
 
 
 def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,

@@ -43,9 +43,17 @@ must be used linearly.  ``prepare_decode`` plans each step's block
 allocation and CoW on the host and raises :class:`~repro_torch.serving.
 kv_pool.OutOfBlocks` atomically when the pool is short, which the
 scheduler turns into preempting the youngest request.
+
+Observability: a :class:`~repro_torch.serving.telemetry.Tracer` records
+the scheduler's request lifecycle events, phase spans and gauges, and a
+:class:`~repro_torch.serving.profiling.KernelProfiler` the kernels'
+analytic cost per phase, sampled phase walls and the numerics canary
+(``ContinuousScheduler(tracer=, profiler=)``).  Both default to None: no
+event, no hook, bit-identical outputs.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -59,7 +67,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import api
 from repro_torch.serving.kv_pool import KVPool, OutOfBlocks, blocks_for
 from repro_torch.serving.prefix_cache import PrefixCache
+from repro_torch.serving.profiling import NULL_PROFILE_METRICS
 from repro_torch.serving.sampler import SamplerConfig, logprobs_of, sample
+from repro_torch.serving.telemetry import RequestLatency, Tracer, percentile
 
 
 @dataclass
@@ -104,6 +114,12 @@ class DecodeEngine:
         self.paged = paged
         self.kv_quant = kv_quant
         self.pool: Optional[KVPool] = None
+        # phase-span telemetry and the roofline/canary profiler, bound by
+        # ContinuousScheduler(tracer=..., profiler=...).  None = zero
+        # overhead: every touchpoint is behind an `is not None` test.
+        self.tracer: Optional[Tracer] = None
+        self.profiler = None
+        self.last_canary_logits: Optional[torch.Tensor] = None
         if kv_quant != "none" and not paged:
             raise ValueError("kv_quant requires the paged KV layout "
                              "(DecodeEngine(paged=True))")
@@ -159,7 +175,23 @@ class DecodeEngine:
         cached lengths (aligned or mid-block) and suffix lengths.
 
         Dense engines write the prompts into fresh (max_len) cache rows
-        and take no cached prefix."""
+        and take no cached prefix.
+
+        With a tracer the call is a ``prefill`` span; with a profiler a
+        ``prefill`` phase whose sampled wall ends with a synchronize on
+        the new logits."""
+        tr, prof = self.tracer, self.profiler
+        t0 = tr.now() if tr is not None else 0.0
+        pt0 = prof.phase_begin("prefill") if prof is not None else 0.0
+        st = self._prefill(tokens, lengths, cached_table, cached_lens)
+        if prof is not None:
+            prof.phase_end("prefill", pt0, outputs=st.pending_logits)
+        if tr is not None:
+            tr.span("prefill", t0, batch=int(tokens.shape[0]),
+                    cached=cached_table is not None)
+        return st
+
+    def _prefill(self, tokens, lengths, cached_table, cached_lens):
         B, S = tokens.shape
         tokens = tokens.to(self.device)
         if lengths is None:
@@ -501,17 +533,106 @@ class DecodeEngine:
     # -- decode -------------------------------------------------------------
     def step(self, state: GenState, generator: Optional[torch.Generator],
              sc: SamplerConfig = SamplerConfig(), stop_ids: tuple = (),
-             row_stops=None):
+             row_stops=None, canary: bool = False):
         """One decode step.  Returns (new_state, sampled tokens (B,)).
 
         ``row_stops`` (B,) adds one stop id per row on top of the shared
         ``stop_ids`` (-1: none): the scheduler stops beam lanes at their
         step delimiter while chat rows in the same batch decode through
         it.  Runs :meth:`prepare_decode` first (may raise
-        :class:`OutOfBlocks`), then samples from the pending logits and
-        scatters this step's KV into the pool in place."""
-        state = self.prepare_decode(state)
-        return self._step_core(state, generator, sc, stop_ids, row_stops)
+        :class:`OutOfBlocks`; a ``plan`` span with a tracer), then
+        samples from the pending logits and scatters this step's KV into
+        the pool in place (a ``decode`` phase with a profiler).
+
+        ``canary=True`` (paged only) first runs the same step through the
+        exact path (:meth:`_canary_step`) and keeps its logits in
+        :attr:`last_canary_logits` for the scheduler's drift
+        comparison."""
+        tr = self.tracer
+        if tr is not None:
+            t0 = tr.now()
+            state = self.prepare_decode(state)
+            tr.span("plan", t0)  # CoW/alloc host planning
+        else:
+            state = self.prepare_decode(state)
+        if canary:
+            self.last_canary_logits = self._canary_step(
+                state, generator, sc, stop_ids, row_stops)
+        prof = self.profiler
+        pt0 = prof.phase_begin("decode") if prof is not None else 0.0
+        st, tok = self._step_core(state, generator, sc, stop_ids, row_stops)
+        if prof is not None:
+            prof.phase_end("decode", pt0, outputs=(tok, st.pending_logits))
+        return st, tok
+
+    def _canary_step(self, state: GenState, generator, sc: SamplerConfig,
+                     stop_ids: tuple, row_stops=None) -> torch.Tensor:
+        """Exact-path replica of the paged decode step, run on the planned
+        state just before the production step: the ``"plain"``
+        paged-attention impl (table gather, the pool's plain dequant, f32
+        softmax), so its logits are the drift-free reference for
+        whatever approximated path production runs.  Returns the replica's
+        next pending logits and commits nothing.
+
+        It samples the token production will sample: from a copy of
+        ``generator`` (or, with none, inside a forked global RNG), so the
+        production generator is never drawn from.  Its one in-place
+        effect, the token's KV write into the pool, lands on the slots
+        production then writes; the K/V projections do not read the
+        attention impl, and each token slab is quantized alone, so
+        production overwrites it with its own bytes and finds the pool as
+        it would have.  The dispatch hook is muted (verification, not
+        production work) and the impl restored in ``finally``."""
+        from repro_torch.kernels import ops
+        from repro_torch.models import layers
+
+        if generator is not None:
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(generator.get_state())
+            rng = contextlib.nullcontext()
+        else:
+            gen = None
+            rng = torch.random.fork_rng(
+                devices=[self.device] if self.device.type == "cuda" else [])
+        prev = layers.set_paged_attention_impl(layers.PLAIN_IMPL)
+        prev_hook = ops.set_op_hook(None)
+        try:
+            with rng:
+                st, _tok = self._step_core(state, gen, sc, stop_ids,
+                                           row_stops)
+        finally:
+            ops.set_op_hook(prev_hook)
+            layers.set_paged_attention_impl(prev)
+        return st.pending_logits
+
+    def kv_roundtrip_error(self, max_blocks: int = 4):
+        """Per-layer KV quantization round-trip error over a sample of
+        live pool blocks: ``max |dequant(quant(dequant(pool))) -
+        dequant(pool)|`` per layer, K and V leaves combined.  A stable
+        quantizer round-trips its own output exactly (error 0.0); drift
+        here means the stored codes sit on decision boundaries the
+        re-quantization resolves differently, the online proxy for §5.1
+        drift when no fp reference exists.  Returns None on fp pools."""
+        from repro_torch.serving.kv_quant import (dequantize_kv, kv_geometry,
+                                                  quantize_kv)
+
+        pool = self.pool
+        if pool is None or not isinstance(pool.k, dict):
+            return None
+        live = np.nonzero(pool.refcount > 0)[0][:max_blocks]
+        if live.size == 0:
+            return None
+        idx = torch.as_tensor(live, dtype=torch.long, device=self.device)
+        per_layer = None
+        for leaf in (pool.k, pool.v):
+            sub = {name: a[:, idx] for name, a in leaf.items()}
+            mode, gr, gc, _ = kv_geometry(sub)
+            x = dequantize_kv(sub)
+            x2 = dequantize_kv(quantize_kv(x, mode=mode, gr=gr, gc=gc))
+            err = (x2 - x).abs().flatten(1).amax(dim=1)      # (L,)
+            per_layer = err if per_layer is None \
+                else torch.maximum(per_layer, err)
+        return [float(e) for e in per_layer.cpu()]
 
     def _step_core(self, state: GenState, generator, sc: SamplerConfig,
                    stop_ids: tuple, row_stops=None):
@@ -589,19 +710,28 @@ class DecodeEngine:
         under the verify logits at j - 1.  Returns ``(new_state,
         commit)``, ``commit`` a host (B, W) 0/1 prefix mask: row i
         committed ``xs[i, :commit[i].sum()]``.  The rejected suffix's
-        blocks are reclaimed by :meth:`trim_rows`."""
+        blocks are reclaimed by :meth:`trim_rows`.  With a tracer the
+        block plan is a ``plan`` span and the rest a ``spec_verify``
+        span; with a profiler the forward is a ``spec_verify`` phase."""
         if not self.paged:
             raise ValueError("spec_verify requires the paged KV layout "
                              "(DecodeEngine(paged=True))")
         xs = self._vec(xs, torch.int32)
         B, W = xs.shape
         stop_ids = tuple(stop_ids) or (self.eos_id,)
+        tr = self.tracer
+        t0 = tr.now() if tr is not None else 0.0
         state = self.prepare_decode(state, W, clamp=True)
+        if tr is not None:
+            tr.span("plan", t0)
         clen, done = state.cache_len, state.done
         clen_h, done_h = clen.cpu().numpy(), done.cpu().numpy()
         # the prefix gather covers the longest live row, block granular
         top = int(clen_h[~done_h].max()) if (~done_h).any() else 1
         prefix_w = max(1, -(-top // self.pool.block_size))
+        prof = self.profiler
+        t1 = tr.now() if tr is not None else 0.0
+        pt0 = prof.phase_begin("spec_verify") if prof is not None else 0.0
         paged = self._paged_handle(state.table)
         prefix = self._gather_prefix(paged["table"], clen,
                                      prefix_w=prefix_w)
@@ -641,7 +771,12 @@ class DecodeEngine:
             pending_logits=pending, done=new_done,
             logprob_sum=state.logprob_sum + (lps * commit.float()).sum(1),
             n_gen=(state.n_gen + a).to(torch.int32))
-        return new_state, commit.cpu().numpy().astype(np.int32)
+        if prof is not None:
+            prof.phase_end("spec_verify", pt0, outputs=(commit, pending))
+        commit_h = commit.cpu().numpy().astype(np.int32)
+        if tr is not None:
+            tr.span("spec_verify", t1, batch=int(B), width=W)
+        return new_state, commit_h
 
     def trim_rows(self, state: GenState, rows) -> GenState:
         """Free the planned but unused tail blocks of ``rows`` after a
@@ -849,12 +984,6 @@ class StepRecord:
     decode_tokens: Optional[int] = None
 
 
-def percentile(xs, q: float) -> float:
-    """Linear-interpolated percentile; 0.0 on empty input."""
-    xs = list(xs)
-    return float(np.percentile(np.asarray(xs, np.float64), q)) if xs else 0.0
-
-
 class SchedulerMetrics:
     """Step-level metrics of the continuous batching loop."""
 
@@ -896,6 +1025,17 @@ class SchedulerMetrics:
         self.spec_accepted_tokens = 0
         self.spec_committed_tokens = 0
         self.spec_row_steps = 0
+        # per-request latency records (telemetry.RequestLatency), appended
+        # at request completion when a Tracer is attached: the histogram
+        # behind the summary's ttft / itl / queue_wait percentiles.  Empty
+        # without a tracer (those keys then report 0.0); step_time_*
+        # comes from StepRecord.wall_s and needs no tracer.
+        self.latencies: list[RequestLatency] = []
+        # roofline/canary profiler (profiling.KernelProfiler) bound by
+        # ContinuousScheduler(profiler=...); summary() merges its keys
+        # (NULL_PROFILE_METRICS' zeros without one, so the key set is the
+        # same either way)
+        self.profiler = None
 
     def record(self, rec: StepRecord):
         self.records.append(rec)
@@ -918,6 +1058,12 @@ class SchedulerMetrics:
         step_ts = [r.wall_s for r in self.records]
         admitted = sum(r.admitted for r in self.records)
         sizes = self.admission_batch_sizes
+        # tail latency (seconds); every key survives an admitted == 0
+        # drain (percentile is 0.0 on empty input)
+        lat = self.latencies
+        ttfts = [x.ttft for x in lat]
+        waits = [x.queue_wait for x in lat]
+        gaps = [g for x in lat for g in x.gaps]
         return {
             "admitted_requests": admitted,
             "prefill_calls": self.prefill_calls,
@@ -963,8 +1109,20 @@ class SchedulerMetrics:
             "accepted_tokens_per_step": (self.spec_committed_tokens
                                          / self.spec_row_steps
                                          if self.spec_row_steps else 0.0),
+            "latency_requests": len(lat),
+            "ttft_p50": percentile(ttfts, 50),
+            "ttft_p90": percentile(ttfts, 90),
+            "ttft_p99": percentile(ttfts, 99),
+            "itl_p50": percentile(gaps, 50),
+            "itl_p99": percentile(gaps, 99),
+            "queue_wait_p50": percentile(waits, 50),
+            "queue_wait_p99": percentile(waits, 99),
+            "preempt_delay_s": sum(x.preempt_delay for x in lat),
             "step_time_p50": percentile(step_ts, 50),
             "step_time_p99": percentile(step_ts, 99),
+            **(self.profiler.summary_metrics()
+               if self.profiler is not None
+               else dict(NULL_PROFILE_METRICS)),
         }
 
 
@@ -1019,6 +1177,15 @@ class ContinuousScheduler:
     the plain step.  ``OutOfBlocks`` in the verify preempts and reruns
     the round, the snapshot already released.
 
+    ``tracer`` (:class:`~repro_torch.serving.telemetry.Tracer`) records
+    the lifecycle events, phase spans and gauges of the JAX package's
+    scheduler, with the same kinds, names and arguments; ``profiler``
+    (:class:`~repro_torch.serving.profiling.KernelProfiler`) attributes
+    the kernels' analytic cost per phase, samples phase walls and, on its
+    canary steps, holds the decode step against the exact path (a canary
+    step is a plain step, never a speculative round).  Both default to
+    None: zero overhead, bit-identical outputs.
+
     The scheduler runs a paged engine only (the JAX package's also runs
     the dense layout).
     """
@@ -1026,6 +1193,7 @@ class ContinuousScheduler:
     def __init__(self, engine: DecodeEngine, n_slots: int = 8,
                  prompt_len: int = 32, stop_ids: tuple = (),
                  prefix_cache: Optional[PrefixCache] = None,
+                 tracer: Optional[Tracer] = None, profiler=None,
                  spec: Optional[SpecConfig] = None):
         if not engine.paged:
             raise ValueError(
@@ -1033,6 +1201,23 @@ class ContinuousScheduler:
                 "(DecodeEngine(paged=True)): admission, preemption, draft "
                 "lanes and rejected suffixes are block-pool operations")
         self.engine = engine
+        # the scheduler owns its engine's tracer and profiler slots:
+        # constructing one (re)binds them, so the engine's prefill / plan
+        # spans and phases land in the same trace and report, and a
+        # profiler's dispatch hook is installed.  The step-wall clock is
+        # the tracer's, else the profiler's (both injectable), so traced
+        # runs are clock-deterministic.
+        self.tracer = tracer
+        engine.tracer = tracer
+        self._clock = (tracer.now if tracer is not None
+                       else profiler.now if profiler is not None
+                       else time.perf_counter)
+        self.profiler = profiler
+        engine.profiler = profiler
+        if profiler is not None:
+            profiler.install()
+        self._preempted: set = set()   # req_ids awaiting re-admission
+        self._ft_emitted: set = set()  # req_ids whose first_token fired
         self.n_slots = n_slots
         self.prompt_len = prompt_len
         self.stop_ids = tuple(stop_ids) or (engine.eos_id,)
@@ -1069,6 +1254,7 @@ class ContinuousScheduler:
         self._beams: dict[int, _BeamRun] = {}    # req_id -> in-flight tree
         self.beam_results: dict[int, dict] = {}  # req_id -> final selection
         self.metrics = SchedulerMetrics(n_slots)
+        self.metrics.profiler = profiler
         self.metrics.kv_quant = engine.pool.mode
         self._block_bytes = engine.pool.block_bytes()
 
@@ -1124,6 +1310,8 @@ class ContinuousScheduler:
         self._n_samples[req.req_id] = (req.search.width if req.search
                                        else max(1, req.n_samples))
         self.queue.append(req)
+        if self.tracer is not None:
+            self.tracer.event("enqueue", req.req_id, step=self.step_count)
 
     @staticmethod
     def _fan(req: Request) -> int:
@@ -1171,6 +1359,21 @@ class ContinuousScheduler:
     def _count_prefill(self, batch_size: int):
         self.metrics.record_prefill(batch_size)
 
+    def _trace_admit(self, req: Request, rows: list,
+                     cached_tokens: int = 0) -> None:
+        """Emit the request's admit event (readmit after a preemption)
+        with its slot rows and, on the cache-aware path, the cached
+        prefix length it admitted with."""
+        tr = self.tracer
+        if tr is None:
+            return
+        kind = "readmit" if req.req_id in self._preempted else "admit"
+        self._preempted.discard(req.req_id)
+        tr.event(kind, req.req_id, step=self.step_count,
+                 rows=[int(r) for r in rows],
+                 cache_hit=bool(cached_tokens),
+                 lease_tokens=int(cached_tokens))
+
     def _admit_plain(self, reqs: list, free: list) -> int:
         """One batched prefill + one merge for a run of plain requests."""
         padded = [self._pad(r.prompt) for r in reqs]
@@ -1183,6 +1386,7 @@ class ContinuousScheduler:
         for req, r in zip(reqs, rows):
             self.slots[r] = _Slot(req=req, sample_idx=0,
                                   admitted_step=self.step_count)
+            self._trace_admit(req, [r])
         return sum(n for _, n in padded)
 
     def _admit_group(self, req: Request, free: list) -> int:
@@ -1201,6 +1405,7 @@ class ContinuousScheduler:
         for j, r in enumerate(rows):
             self.slots[r] = _Slot(req=req, sample_idx=j,
                                   admitted_step=self.step_count)
+        self._trace_admit(req, rows)
         if req.search is not None:
             self._start_beam(req, rows)
         return length
@@ -1281,6 +1486,7 @@ class ContinuousScheduler:
         for j, r in enumerate(rows):
             self.slots[r] = _Slot(req=req, sample_idx=j,
                                   admitted_step=self.step_count)
+        self._trace_admit(req, rows, cached_tokens=clen)
         if req.search is not None:
             self._start_beam(req, rows)
         return len(suffix)
@@ -1346,6 +1552,7 @@ class ContinuousScheduler:
             for e, r in zip(group, rows):
                 self.slots[r] = _Slot(req=e["req"], sample_idx=0,
                                       admitted_step=self.step_count)
+                self._trace_admit(e["req"], [r], cached_tokens=e["clen"])
                 self._count_lookup(e["clen"])
             suffix_tokens += sum(len(x) for x in suffixes)
         return suffix_tokens
@@ -1420,8 +1627,16 @@ class ContinuousScheduler:
             first_decode_step=slot.first_decode_step,
             finished_step=self.step_count))
         self.metrics.completed_samples += 1
+        tr = self.tracer
+        if tr is not None:
+            tr.event("release", slot.req.req_id, step=self.step_count,
+                     rows=[int(row)], reason=reason)
         if len(done) == max(1, slot.req.n_samples):
             self.metrics.completed_requests += 1
+            if tr is not None:
+                # complete: its latency record closes on this release
+                self.metrics.latencies.append(
+                    tr.request_latency(slot.req.req_id))
         self.slots[row] = None
 
     def _preempt_youngest(self):
@@ -1451,6 +1666,12 @@ class ContinuousScheduler:
         self.metrics.completed_samples -= len(dropped)
         self.queue.appendleft(req)
         self.metrics.preemptions += 1
+        if self.tracer is not None:
+            self.tracer.event("preempt", victim, step=self.step_count,
+                              rows=[int(r) for r in rows])
+            self._preempted.add(victim)
+            # the rerun decodes its first token afresh: re-arm the event
+            self._ft_emitted.discard(victim)
 
     # -- beam-search trees ---------------------------------------------------
     def _row_stops(self):
@@ -1470,12 +1691,15 @@ class ContinuousScheduler:
         that exhausts its step budget without sampling the delimiter is
         frozen (done on the device, blocks kept) while its siblings finish
         their step."""
+        tr = self.tracer
         to_freeze: list = []
         boundaries: list = []
         for run in self._beams.values():
+            advanced = False
             for j, r in enumerate(run.rows):
                 if run.stopped[j]:
                     continue
+                advanced = True
                 run.tokens[j].append(int(toks_h[r]))
                 run.step_gen[j] += 1
                 if bool(done_h[r]):      # sampled the delimiter or a stop
@@ -1483,6 +1707,8 @@ class ContinuousScheduler:
                 elif run.step_gen[j] >= run.spec.step_tokens:
                     run.stopped[j] = True
                     to_freeze.append(r)
+            if advanced and tr is not None:
+                tr.event("token", run.req.req_id, step=self.step_count)
             if all(run.stopped):
                 boundaries.append(run)
         return to_freeze, boundaries
@@ -1497,17 +1723,24 @@ class ContinuousScheduler:
         update: losing lanes' blocks free, each survivor's blocks gain
         ``expand - 1`` references and later diverge by copy-on-write."""
         spec, rows = run.spec, run.rows
+        tr = self.tracer
         lp = self.state.logprob_sum.cpu().numpy()
         ng = self.state.n_gen.cpu().numpy()
+        t0 = tr.now() if tr is not None else 0.0
         scores = np.asarray(
             spec.score([list(t) for t in run.tokens], lp[rows], ng[rows]),
             np.float64).ravel()
+        if tr is not None:
+            tr.span("prm", t0, step=self.step_count, candidates=len(rows))
         self.metrics.prm_batches += 1
         self.metrics.prm_candidates += len(rows)
         # stable: ties keep the lowest lane, as the direct path's argsort
         keep = np.argsort(-scores, kind="stable")[:spec.width]
         run.beam_step += 1
         self.metrics.beam_boundaries += 1
+        if tr is not None:
+            tr.event("beam_boundary", run.req.req_id, step=self.step_count,
+                     boundary=run.beam_step)
         survivors = [list(run.tokens[int(k)]) for k in keep]
         if run.beam_step >= spec.max_steps or (
                 spec.finished is not None and spec.finished(survivors)):
@@ -1524,16 +1757,24 @@ class ContinuousScheduler:
         run.step_gen = [0] * len(rows)
         run.stopped = [False] * len(rows)
         self.state = self.engine.resume_rows(self.state, rows)
+        if tr is not None:
+            tr.event("resume", run.req.req_id, step=self.step_count,
+                     rows=[int(r) for r in rows])
 
     def _finish_beam(self, run: _BeamRun, keep, survivors, lp, ng) -> None:
         """Final selection: score the ``width`` survivors, record the
         choice in ``beam_results``, emit one ``CompletedSample`` per
         survivor and release every lane's blocks."""
         spec, rows, req = run.spec, run.rows, run.req
+        tr = self.tracer
         final = spec.final_score or spec.score
         krows = [rows[int(k)] for k in keep]
+        t0 = tr.now() if tr is not None else 0.0
         final_scores = np.asarray(final(survivors, lp[krows], ng[krows]),
                                   np.float64).ravel()
+        if tr is not None:
+            tr.span("prm", t0, step=self.step_count,
+                    candidates=len(survivors))
         self.metrics.prm_batches += 1
         self.metrics.prm_candidates += len(survivors)
         if self.cache is not None:
@@ -1559,6 +1800,10 @@ class ContinuousScheduler:
         }
         self.metrics.completed_samples += len(survivors)
         self.metrics.completed_requests += 1
+        if tr is not None:
+            tr.event("release", req.req_id, step=self.step_count,
+                     rows=[int(r) for r in rows], reason="beam")
+            self.metrics.latencies.append(tr.request_latency(req.req_id))
         for r in rows:
             self.slots[r] = None
         del self._beams[req.req_id]
@@ -1712,9 +1957,33 @@ class ContinuousScheduler:
             m.spec_accepted_tokens += int(a[i]) - 1
             m.spec_committed_tokens += int(a[i])
             m.spec_row_steps += 1
+        if self.tracer is not None:
+            self.tracer.gauge("spec_accepted_tokens",
+                              int(a[np.asarray(eligible, np.int64)].sum())
+                              if eligible else 0)
         return xs, a
 
     # -- the step loop -------------------------------------------------------
+    def _record_canary(self, live: list) -> None:
+        """Drift comparison of a canary step: the production step's new
+        logits against the engine's exact-path logits, over the live rows
+        (frozen and done rows carry the same frozen pending logits in both
+        paths, so every live row compares)."""
+        prof = self.profiler
+        exact = self.engine.last_canary_logits
+        self.engine.last_canary_logits = None
+        rows = torch.as_tensor(live, dtype=torch.long, device=exact.device)
+        ex, pr = exact[rows], self.state.pending_logits[rows]
+        max_err = float((ex - pr).abs().max()) if live else 0.0
+        flips = (int((ex.argmax(-1) != pr.argmax(-1)).sum())
+                 if live else 0)
+        prof.record_canary(
+            max_logit_err=max_err, flips=flips, rows=len(live),
+            kv_err_per_layer=self.engine.kv_roundtrip_error())
+        if self.tracer is not None:
+            self.tracer.gauge("canary_max_logit_err", max_err)
+            self.tracer.gauge("canary_flips", flips)
+
     def step_once(self, generator: Optional[torch.Generator],
                   sc: SamplerConfig = SamplerConfig()) -> bool:
         """One scheduler step (admit → decode → release).  Returns False
@@ -1722,8 +1991,17 @@ class ContinuousScheduler:
         the sampled tokens to the host, lands in ``StepRecord.wall_s``.
         Under ``spec`` and greedy sampling the decode is a speculative
         round (see :class:`ContinuousScheduler`)."""
-        t_wall = time.perf_counter()
+        tr = self.tracer
+        prof = self.profiler
+        t_wall = self._clock()
+        if tr is not None:
+            t_step = tr.now()
+        if prof is not None:
+            prof.begin_step()
         admitted, prefill_tokens = self._admit()
+        if tr is not None:
+            tr.span("admit", t_step, step=self.step_count,
+                    admitted=admitted, prefill_tokens=prefill_tokens)
         live = [i for i, s in enumerate(self.slots) if s is not None]
         if not live:
             return False
@@ -1732,22 +2010,28 @@ class ContinuousScheduler:
         for i in live:
             if self.slots[i].first_decode_step < 0:
                 self.slots[i].first_decode_step = self.step_count
-        # acceptance compares argmaxes: speculate under greedy only
-        spec_round = self.spec is not None and sc.greedy
+        canary = prof is not None and prof.want_canary()
+        # acceptance compares argmaxes: speculate under greedy only; a
+        # canary step's exact replica is defined over the plain step
+        spec_round = self.spec is not None and sc.greedy and not canary
         spec_out = None
         while True:
             try:
+                if tr is not None:
+                    t_dec = tr.now()
                 if spec_round:
                     spec_out = self._spec_step(generator, sc)
                 if spec_out is None:
                     self.state, toks = self.engine.step(
                         self.state, generator, sc, stop_ids=self.stop_ids,
-                        row_stops=self._row_stops())
+                        row_stops=self._row_stops(), canary=canary)
                 break
             except OutOfBlocks:
                 # atomic: the failed plan touched neither pool nor state
                 self._preempt_youngest()
                 live = [i for i, s in enumerate(self.slots) if s is not None]
+        if canary and self.engine.last_canary_logits is not None:
+            self._record_canary(live)
         if spec_out is not None:
             xs_h, a_h = spec_out
             toks_h = xs_h[:, 0]  # beam tracking sees the stepwise token
@@ -1758,6 +2042,22 @@ class ContinuousScheduler:
             t.cpu().numpy() for t in (self.state.done,
                                       self.state.logprob_sum,
                                       self.state.n_gen))
+        if tr is not None:
+            # closes after the copies to the host above (a device sync),
+            # so the span is this decode step's host-visible latency
+            tr.span("decode", t_dec, step=self.step_count, batch=len(live))
+            seen: set = set()
+            for i in live:
+                rid = self.slots[i].req.req_id
+                if (self.slots[i].first_decode_step == self.step_count
+                        and rid not in self._ft_emitted):
+                    self._ft_emitted.add(rid)
+                    tr.event("first_token", rid, step=self.step_count)
+                # every live non-beam row sampled a token this step (stop
+                # tokens included); beam lanes are tracked in _beam_track
+                if self.slots[i].req.search is None and rid not in seen:
+                    seen.add(rid)
+                    tr.event("token", rid, step=self.step_count)
         released = []
         for i in live:
             slot = self.slots[i]
@@ -1794,18 +2094,45 @@ class ContinuousScheduler:
             to_freeze, boundaries = self._beam_track(toks_h, done_h)
             if to_freeze:
                 self.state = self.engine.freeze_rows(self.state, to_freeze)
+                if tr is not None:
+                    by_req: dict = {}
+                    for r in to_freeze:
+                        by_req.setdefault(self.slots[r].req.req_id,
+                                          []).append(int(r))
+                    for rid, rs in by_req.items():
+                        tr.event("freeze", rid, step=self.step_count,
+                                 rows=rs)
             for run in boundaries:
                 self._beam_boundary(run)
+        pool = self.engine.pool
         self.metrics.peak_kv_bytes = max(
-            self.metrics.peak_kv_bytes,
-            self.engine.pool.peak_in_use * self._block_bytes)
-        wall = time.perf_counter() - t_wall
+            self.metrics.peak_kv_bytes, pool.peak_in_use * self._block_bytes)
+        if tr is not None:
+            tr.gauge("occupancy", len(live))
+            tr.gauge("free_blocks", pool.free_blocks)
+            # the storage the pool backs vs the bytes its live blocks
+            # hold: memory pressure beside occupancy on one timeline
+            tr.gauge("pool_reserved_bytes", pool.n_blocks * self._block_bytes)
+            tr.gauge("kv_bytes_in_use", pool.blocks_in_use * self._block_bytes)
+            if self.cache is not None:
+                tr.gauge("cache_pinned_blocks", self.cache.n_cached_blocks)
+        wall = self._clock() - t_wall
+        if prof is not None:
+            prof.end_step(wall)
+            if tr is not None:
+                # attributed kernel cost as counter tracks, so host spans
+                # and kernel time line up on one timeline
+                for k, v in prof.last_step_gauges.items():
+                    tr.gauge(k, v)
         self.metrics.wall_s += wall
         self.metrics.record(StepRecord(
             step=self.step_count, occupancy=len(live), admitted=admitted,
             prefill_tokens=prefill_tokens, wall_s=wall,
             decode_tokens=(int(a_h[np.asarray(live, np.int64)].sum())
                            if a_h is not None else None)))
+        if tr is not None:
+            tr.span("step", t_step, step=self.step_count,
+                    occupancy=len(live))
         self.step_count += 1
         return True
 

@@ -641,3 +641,95 @@ def test_cuda_spec_verify_matches_cpu(cuda, kv):
     assert torch.equal(l0, l1) and (n0 == n1).all()
     torch.testing.assert_close(p1, p0, atol={"q8": 5e-3, "q4": 5e-2}[kv],
                                rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["q8", "q4"])
+def test_cuda_profiler_hook_and_canary(cuda, kv, monkeypatch):
+    """The profiler on the card: every op the dispatch hook records is one
+    kernel launch (the canary's own launches, made with the hook muted,
+    apart); a canary on every other step leaves the tokens and every pool
+    byte as a run without a profiler; its drift stays within the
+    reference check's bars (q8 5e-3, q4 5e-2); and the engine selects the
+    "plain" impl only inside ``_canary_step``, which launches no paged
+    attention kernel."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TR
+    from repro_torch.quant.qlinear import quantize_model_params
+    from repro_torch.serving.engine import (ContinuousScheduler,
+                                            DecodeEngine, Request)
+    from repro_torch.serving.profiling import (KernelProfiler,
+                                               validate_profile_report)
+
+    cfg = ModelConfig(name="canary", n_layers=2, d_model=128, n_heads=4,
+                      n_kv_heads=2, d_ff=256, vocab_size=320,
+                      dtype="float32", qkv_bias=True, tie_embeddings=True)
+    params = quantize_model_params(TR.init_params(cfg, seed=3, device=cuda))
+    gen = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(3, 300, (n,), generator=gen, dtype=torch.int32)
+               for n in (13, 5, 9)]
+    seen, canary_launches = [], []
+    orig_pda, orig_canary = L.paged_decode_attention, \
+        DecodeEngine._canary_step
+    inside = [False]
+
+    def pda(*a, **kw):
+        seen.append((L._PAGED_ATTN_IMPL, inside[0]))
+        return orig_pda(*a, **kw)
+
+    def canary(self, *a, **kw):
+        before = ops.launch_counts()
+        inside[0] = True
+        try:
+            return orig_canary(self, *a, **kw)
+        finally:
+            inside[0] = False
+            after = ops.launch_counts()
+            canary_launches.append({k: after[k] - before[k] for k in after})
+
+    monkeypatch.setattr(L, "paged_decode_attention", pda)
+    monkeypatch.setattr(DecodeEngine, "_canary_step", canary)
+
+    def serve(profiler):
+        eng = DecodeEngine(params, cfg, max_len=64, paged=True, block_size=8,
+                           n_blocks=1 + 6 * 8, kv_quant=kv)
+        sched = ContinuousScheduler(eng, n_slots=4, prompt_len=16,
+                                    stop_ids=(9999,), profiler=profiler)
+        for i, p in enumerate(prompts):
+            sched.submit(Request(req_id=i, prompt=p, max_new_tokens=12,
+                                 n_samples=2 if i == 0 else 1))
+        ops.reset_launch_counts()
+        try:
+            res = sched.run(torch.Generator(device=cuda).manual_seed(0),
+                            SamplerConfig(temperature=0.8))
+        finally:
+            if profiler is not None:
+                profiler.uninstall()
+        torch.cuda.synchronize()
+        pool = [t.clone() for leaf in (eng.pool.k, eng.pool.v)
+                for t in leaf.values()]
+        return res, ops.launch_counts(), pool, sched
+
+    want, _, pool0, _ = serve(None)
+    prof = KernelProfiler(sample_rate=1.0, canary_rate=0.5)
+    got, counts, pool1, sched = serve(prof)
+    assert got == want
+    assert all(torch.equal(a, b) for a, b in zip(pool0, pool1))
+    rep = prof.report()
+    assert validate_profile_report(rep) == []
+    s = sched.metrics.summary()
+    assert s["canary_samples"] == len(canary_launches) > 0
+    in_canary = {k: sum(c[k] for c in canary_launches) for k in counts}
+    assert in_canary["quant_paged_attention"] == 0
+    assert in_canary["lut_dequant_gemm"] > 0
+    k = rep["kernels"]
+    assert k["lut_dequant_matmul"]["calls"] == \
+        counts["lut_dequant_gemm"] - in_canary["lut_dequant_gemm"]
+    assert k["paged_flash_decode"]["calls"] == \
+        counts["quant_paged_attention"] == \
+        cfg.n_layers * rep["phases"]["decode"]["calls"]
+    assert s["canary_max_logit_err"] <= {"q8": 5e-3, "q4": 5e-2}[kv]
+    assert {impl for impl, c in seen if c} == {L.PLAIN_IMPL}
+    assert L.PLAIN_IMPL not in {impl for impl, c in seen if not c}
+    assert ops.op_hook() is None

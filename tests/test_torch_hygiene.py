@@ -117,3 +117,34 @@ def test_cpu_serve_speculative_entry_point_runs(no_cuda, capsys, draft):
     with pytest.raises(SystemExit, match="--continuous"):
         serve.main(["--arch", "qwen2.5-1.5b", "--smoke", "--device", "cpu",
                     "--paged", "--spec-k", "4", *draft, "--dry"])
+
+
+def test_cpu_serve_writes_trace_and_profile_that_validate(no_cuda, capsys,
+                                                          tmp_path):
+    """``--trace`` / ``--profile`` on the CPU write a Chrome trace and a
+    profile report that the port's validators (and CLIs) accept, print
+    their lines, and are refused without ``--continuous``."""
+    import json
+
+    from repro_torch.launch import serve
+    from repro_torch.serving import profiling, telemetry
+
+    trace, report = tmp_path / "trace.json", tmp_path / "profile.json"
+    args = ["--arch", "qwen2.5-1.5b", "--smoke", "--device", "cpu",
+            "--paged", "--kv-quant", "q8", "--dry", "--trace", str(trace),
+            "--profile", str(report), "--canary-rate", "0.5"]
+    rows = serve.main(args + ["--continuous"])
+    s = rows[0]["serving"]
+    assert s["latency_requests"] == 2 and s["ttft_p50"] > 0
+    assert s["canary_samples"] > 0 and s["canary_argmax_flip_rate"] == 0.0
+    out = capsys.readouterr().out
+    assert "[serve] trace:" in out and "[serve] profile:" in out
+    assert "[serve] latency: ttft_p50=" in out
+    assert telemetry.validate_chrome_trace(json.loads(trace.read_text())) \
+        == []
+    assert profiling.validate_profile_report(
+        json.loads(report.read_text())) == []
+    assert telemetry.main([str(trace)]) == 0
+    assert profiling.main([str(report)]) == 0
+    with pytest.raises(SystemExit, match="--continuous"):
+        serve.main(args)
