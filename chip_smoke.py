@@ -17,14 +17,18 @@ Phases, one JSON line each:
    beside its roofline bound, its plain version and one PyTorch library
    call computing the same function (timed only; none for the KV dequant).
    Paged attention runs here at the decode shapes, at its own split count,
-   also timed at 1 and 4 splits and with 17 times the rows at 1 and 2; the GEMM and the KV dequant run after
+   also timed at 1 and 4 splits and with 17 times the rows at 1 and 2,
+   and at olmoe-1b-7b's decode shape (Hkv 16, G 1) on the two paths that
+   serve it (Q8 exact, Q4 LUT); the GEMM and the KV dequant run after
    phase 5, at the shapes its runs launched them with, the GEMM and its
    library call timed hot (one weight back to back) and cold (a rotation
    over weight copies past the 50 MB L2), with the GEMM's regime;
 4. ``reference``: a small quantized model run on the GPU and on the CPU
    (plain versions) from the same weights and tokens; prefill,
    teacher-forced decode and partial-prefill (cached prefix) logits must
-   agree;
+   agree; then a small MoE model (its routing ids equal on both devices
+   at every call) and a ``patch_stub`` model (prefill with a patch
+   prefix) the same way;
 5. ``serve``: ``repro_torch.launch.serve`` at the full width of
    qwen2.5-1.5b (28 layers, random seeded weights, W4A16), once per path:
    continuous Best-of-8 over 4 tasks on Q8, Q4 and bf16 KV, each in exact
@@ -39,8 +43,13 @@ Phases, one JSON line each:
    (``spec/base``), k = 4 self-drafting (``spec/self``) and k = 4 with the
    registry's dense draft model (``spec/draft``), whose greedy tokens are
    held against spec/base's (``spec_parity``: a row may leave them only at
-   a near-tie, the base run's logit gap there at most ``SPEC_GAP``).
-   Every request must complete, the pool must
+   a near-tie, the base run's logit gap there at most ``SPEC_GAP``); then
+   olmoe-1b-7b at its published width (16 layers, 64 experts of width
+   1024, top-8, W4A16 with Q4 expert gate/up and Q8 expert down),
+   continuous Best-of-8 over 2 tasks on Q8 KV (``moe/q8``), on Q4 KV with
+   the LUT softmax (``moe/q4lut``) and on Q8 KV with the prefix cache over
+   a 3-shot header (``moe/prefix``).  Launch counts follow each served
+   model (``gemm_layout``).  Every request must complete, the pool must
    drain to the cache's pinned blocks, and each run must launch its
    kernels exactly as often as its decode steps, prefills and
    speculative verifies require (counters reset just before each run,
@@ -57,7 +66,8 @@ Phases, one JSON line each:
 6. ``observe``: the serve again through ``--trace`` and ``--profile``
    (the request tracer, the kernel profiler with its numerics canary at
    rate 0.25), Best-of-8 over 2 tasks: Q8/exact off, on, off, on, then on
-   with the canary off; Q4/LUT and q8/prefix on; spec/self traced.  Each
+   with the canary off; Q4/LUT and q8/prefix on; spec/self traced;
+   olmoe-1b-7b on Q8/exact on.  Each
    trace and report must pass the port's validators, each op's hooked
    calls must equal its kernel's launches outside the canary (28 paged
    attention and 168 K3 per decode step), the canary must launch no paged
@@ -83,7 +93,9 @@ Phases, one JSON line each:
    ``dequant_matmul_ref``; each projection shape timed beside an empty
    kernel on its grid and on one block (the launch floor);
 9. ``profile``: where a decode step's time goes, under ``torch.profiler``,
-   with K3's and K1/K2's device ms per decode step.
+   with K3's and K1/K2's device ms per decode step, for qwen2.5-1.5b and
+   for olmoe-1b-7b (with its experts' dequant and products timed by CUDA
+   events at the step's shapes and set against the step).
 
 Phases 7 and 8 reset the counters, drive their entry point once per case,
 and read the counts before any comparison or timing launches.  Then a
@@ -117,10 +129,26 @@ REPLACES = {
     "lut_softmax_attention": "src/repro/kernels/lut_softmax_attention.py:131",
     "tile_quantize": "src/repro/kernels/tile_quantize.py:35",
 }
-GEMM_KN = ((1536, 1536), (1536, 256), (1536, 8960))  # qwen2.5-1.5b Q4 (K, N)
 SERVE_ARGS = ["--arch", "qwen2.5-1.5b", "--quantize", "--method",
               "best_of_n", "--budget", "8", "--tasks", "4", "--continuous",
               "--paged"]  # continuous Best-of-8 over 4 tasks
+MOE_ARCH = "olmoe-1b-7b"
+
+
+def gemm_layout(cfg) -> dict:
+    """{(K, N): launches per layer} of K3 in one forward of ``cfg`` under
+    ``DEFAULT_POLICY``: the Q4 attention projections, and the Q4 FFN
+    gate and up of a dense layer (an MoE layer's experts are dequantized
+    whole, not K3; every FFN down is Q8, not K3)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim()
+    out: dict = {}
+    shapes = [(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
+              (d, cfg.n_kv_heads * hd), (cfg.n_heads * hd, d)]
+    if not cfg.moe:
+        shapes += [(d, cfg.d_ff)] * 2
+    for kn in shapes:
+        out[kn] = out.get(kn, 0) + 1
+    return out
 
 
 def emit(phase: str, **kw) -> None:
@@ -225,14 +253,15 @@ def check_close(name, out, want, atol, rtol=0.0) -> float:
 # ---------------------------------------------------------------------------
 
 
-def paged_case(kind: str, dtype, seed: int):
-    """Main-path decode shapes: B=8 slots, Hkv=2, G=6, D=128, 16-token
-    blocks, W=16 (max_len 256); ragged lengths including 0 and full."""
+def paged_case(kind: str, dtype, seed: int, Hkv: int = 2, G: int = 6):
+    """Main-path decode shapes: B=8 slots, 16-token blocks, W=16 (max_len
+    256), D=128 and qwen2.5-1.5b's Hkv=2, G=6 (olmoe-1b-7b: Hkv=16, G=1);
+    ragged lengths including 0 and full."""
     import torch
 
     from repro_torch.serving.kv_quant import kv_tile_geometry, quantize_kv
 
-    B, Hkv, G, D, bs, W = 8, 2, 6, 128, 16, 16
+    B, D, bs, W = 8, 128, 16, 16
     nb = 1 + B * W
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q = (torch.randn((B, Hkv, G, D), generator=gen, device="cuda")
@@ -349,22 +378,35 @@ def plain_fn(mode: str):
         q, k, v, t, n, window=w)
 
 
+# the paged attention's geometries: qwen2.5-1.5b's every (pool, softmax)
+# path, and olmoe-1b-7b's two (Q8 exact, Q4 LUT); (Hkv, G, path prefix,
+# name suffix, [(kind, mode), ...])
+PAGED_GEOMS = (
+    (2, 6, "", "", [(k, m) for k in ("fp", "q8", "q4")
+                    for m in ("exact", "lut")]),
+    (16, 1, "moe/", "/olmoe", [("q8", "exact"), ("q4", "lut")]),
+)
+MOE_PATH = {("q8", "exact"): "moe/q8", ("q4", "lut"): "moe/q4lut"}
+
+
 def check_paged_kernels(results: list) -> None:
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as PA
 
-    for kind in ("fp", "q8", "q4"):
-        name = "paged_attention" if kind == "fp" else "quant_paged_attention"
-        wrapper = PA.paged_attention if kind == "fp" else \
-            PA.quant_paged_attention
-        for mode in ("exact", "lut"):
+    for Hkv, G, moe, suffix, cases in PAGED_GEOMS:
+        for kind, mode in cases:
+            name = "paged_attention" if kind == "fp" else \
+                "quant_paged_attention"
+            wrapper = PA.paged_attention if kind == "fp" else \
+                PA.quant_paged_attention
             atol = 2e-5 if mode == "exact" else 2e-3
             plain = plain_fn(mode)
             for dtype in (torch.float32, torch.bfloat16):
                 rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
-                q, kp, vp, table, lens = paged_case(kind, dtype, seed=7)
+                q, kp, vp, table, lens = paged_case(kind, dtype, seed=7,
+                                                    Hkv=Hkv, G=G)
                 lut = ops.exp_lut(q.device) if mode == "lut" else None
                 extra = () if kind == "fp" else (ops.q4_codebook(q.device),)
                 errs = []
@@ -374,8 +416,8 @@ def check_paged_kernels(results: list) -> None:
                     want = plain(q, kp, vp, table, lens, lut, window)
                     torch.cuda.synchronize()
                     errs.append(check_close(
-                        f"{name}/{kind}/{mode}/{dtype}/w{window}", out, want,
-                        atol, rtol))
+                        f"{name}/{kind}/{mode}{suffix}/{dtype}/w{window}",
+                        out, want, atol, rtol))
                     if float(out[0].abs().max()) != 0.0:
                         raise AssertionError(f"{name}: zero-length row "
                                              f"is not exactly 0")
@@ -384,35 +426,40 @@ def check_paged_kernels(results: list) -> None:
                 run = lambda: wrapper(q, kp, vp, table, lens, lut, *extra,
                                       exp_mode=mode)
                 ms, wall = time_ms(run), call_ms(run)
-                # the same function at other split counts, through the
-                # wrappers' private launch (timed only): 1 and 4 splits at
-                # this shape, and 1 and 2 at 17 times its rows (B Hkv =
-                # 272, where the wrappers take 2 splits)
-                cb = extra[0] if extra else None
-
-                def at(s, args=(q, kp, vp, table, lens)):
-                    return time_ms(lambda: PA._launch(
-                        *args, lut, cb, window=0, softcap=0.0,
-                        exp_mode=mode, n_splits=s))
-
-                big = (q.repeat(17, 1, 1, 1), kp, vp, table.repeat(17, 1),
-                       lens.repeat(17))
-                by_splits = {"B8": {s: at(s) for s in (1, 4)},
-                             "B136": {s: at(s, big) for s in (1, 2)}}
                 plain_ms = time_ms(lambda: plain(q, kp, vp, table, lens,
                                                  lut, 0), iters=10)
                 nbytes, flops = paged_bytes_flops(q, kp, table, lens, 0)
                 b_ms, b_by = bound(nbytes, flops, "bfloat16")
-                row = {"name": f"{name}/{kind}/{mode}", "route": "cuda",
-                       "source": PAGED_SRC, "replaces": REPLACES[name],
+                path = MOE_PATH[kind, mode] if moe else \
+                    f"{'none' if kind == 'fp' else kind}/{mode}"
+                row = {"name": f"{name}/{kind}/{mode}{suffix}",
+                       "route": "cuda", "source": PAGED_SRC,
+                       "replaces": REPLACES[name],
                        "max_abs_err": max(errs), "ms": ms, "call_ms": wall,
                        "plain_ms": plain_ms, "bound_ms": b_ms,
                        "bound_by": b_by,
                        "library_ms": sdpa_library(q, kp, vp, table, lens),
                        "splits": PA.splits(*q.shape[:2], table.shape[1]),
-                       "ms_by_splits": by_splits, "counter": name,
-                       "path": f"{'none' if kind == 'fp' else kind}/{mode}"}
-                emit("kernel", **row, shape="B8 Hkv2 G6 D128 bs16 W16",
+                       "counter": name, "path": path}
+                if not moe:
+                    # the same function at other split counts, through
+                    # the wrappers' private launch (timed only): 1 and 4
+                    # splits at this shape, and 1 and 2 at 17 times its
+                    # rows (B Hkv = 272, where the wrappers take 2 splits)
+                    cb = extra[0] if extra else None
+
+                    def at(s, args=(q, kp, vp, table, lens)):
+                        return time_ms(lambda: PA._launch(
+                            *args, lut, cb, window=0, softcap=0.0,
+                            exp_mode=mode, n_splits=s))
+
+                    big = (q.repeat(17, 1, 1, 1), kp, vp,
+                           table.repeat(17, 1), lens.repeat(17))
+                    row["ms_by_splits"] = {
+                        "B8": {s: at(s) for s in (1, 4)},
+                        "B136": {s: at(s, big) for s in (1, 2)}}
+                emit("kernel", **row,
+                     shape=f"B8 Hkv{Hkv} G{G} D128 bs16 W16",
                      dtype="bfloat16")
                 results.append(row)
 
@@ -429,15 +476,16 @@ def gemm_case(M: int, K: int, N: int, dtype, seed: int):
     return x, qw
 
 
-def check_gemm_kernel(results: list, gemm_m: dict) -> None:
-    """K3 at every M the serve runs launched it with (``gemm_m``: M -> the
-    serve path whose launches its rows carry) and a ragged M."""
+def check_gemm_kernel(results: list, gemm_mkn: dict) -> None:
+    """K3 at every (M, K, N) the serve runs launched it with
+    (``gemm_mkn``: (M, K, N) -> the serve path whose launches its row
+    carries) and a ragged M."""
     import torch
 
     from repro_torch.kernels import lut_dequant_gemm as G
     from repro_torch.quant import tile_quant as TQ
 
-    shapes = [(m, k, n) for m in gemm_m for (k, n) in GEMM_KN]
+    shapes = sorted(gemm_mkn)
     # a ragged M over many 16-row tiles, checked only
     for (M, K, N) in shapes + [(300, 1536, 1536)]:
         errs = {}
@@ -485,7 +533,7 @@ def check_gemm_kernel(results: list, gemm_m: dict) -> None:
                "library_ms_cold": lib_cold, "regime": pl.regime,
                "plan": {"mt": pl.mt, "wk": pl.wk, "kz": pl.kz},
                "counter": (M, K, N),
-               "path": gemm_m[M]}
+               "path": gemm_mkn[M, K, N]}
         emit("kernel", **row, dtype="bfloat16")
         results.append(row)
 
@@ -498,55 +546,57 @@ DEQUANT_R = (28 * 64, 28 * 7 * 64, 1, 37)
 
 def check_dequant_kv_kernel(results: list, kv_r: dict) -> None:
     """K4 against its plain version, exactly, for q8 and q4 at DEQUANT_R
-    and at every (mode, R) the serve runs launched it with (``kv_r``:
-    (mode, R) -> that path); timed at R >= 1000, and a row of the kernels
-    line where a path launched it."""
+    (qwen2.5-1.5b's (Hkv, D) = (2, 128)) and at every (mode, R, Hkv, D)
+    the serve runs launched it with (``kv_r``: (mode, R, Hkv, D) -> that
+    path); timed at R >= 1000, and a row of the kernels line where a path
+    launched it."""
     import torch
 
     from repro_torch.kernels import lut_dequant_kv as LK
     from repro_torch.kernels import ops
     from repro_torch.serving.kv_quant import kv_tile_geometry, quantize_kv
 
-    Hkv, D = 2, 128
-    gr, gc = kv_tile_geometry(Hkv, D)
     cb = ops.q4_codebook("cuda")
-    for mode in ("q8", "q4"):
-        for R in sorted(set(DEQUANT_R) | {r for m, r in kv_r if m == mode}):
-            gen = torch.Generator(device="cuda").manual_seed(R)
-            x = torch.randn((R, Hkv, D), generator=gen, device="cuda") * 3.0
-            q = quantize_kv(x, mode=mode, gr=gr, gc=gc)
-            args = (q["codes"], q["scales"], cb)
-            kw = dict(mode=mode, gr=gr, gc=gc)
-            out = LK.lut_dequant_kv(*args, **kw)
-            want = LK.plain_lut_dequant_kv(*args, **kw)
-            torch.cuda.synchronize()
-            if not torch.equal(out, want):
-                raise AssertionError(
-                    f"lut_dequant_kv/{mode}/R{R}: not bit-identical to the "
-                    f"plain version (max abs err "
-                    f"{float((out - want).abs().max()):.3e})")
-            if R < 1000:
-                emit("kernel_check", name="lut_dequant_kv", mode=mode, R=R,
-                     max_abs_err=0.0)
-                continue
-            run = lambda: LK.lut_dequant_kv(*args, **kw)
-            b_ms, b_by = bound(*dequant_kv_bytes_flops(q, mode, gr, gc),
-                               "float32")
-            row = {"name": f"lut_dequant_kv/{mode}/R{R}", "route": "cuda",
-                   "source": DEQUANT_SRC,
-                   "replaces": REPLACES["lut_dequant_kv"], "max_abs_err": 0.0,
-                   "ms": time_ms(run), "call_ms": call_ms(run),
-                   "plain_ms": time_ms(lambda: LK.plain_lut_dequant_kv(
-                       *args, **kw), iters=10),
-                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                   "counter": ("kv", mode, R),
-                   "path": kv_r.get((mode, R))}
-            extra = dict(shape=f"R{R} Hkv2 D128", dtype="float32")
-            if row["path"] is None:  # checked and timed, not on a path
-                emit("kernel_check", **row, **extra)
-                continue
-            emit("kernel", **row, **extra)
-            results.append(row)
+    cases = {(m, r, 2, 128) for m in ("q8", "q4") for r in DEQUANT_R}
+    for mode, R, Hkv, D in sorted(cases | set(kv_r)):
+        gr, gc = kv_tile_geometry(Hkv, D)
+        gen = torch.Generator(device="cuda").manual_seed(R)
+        x = torch.randn((R, Hkv, D), generator=gen, device="cuda") * 3.0
+        q = quantize_kv(x, mode=mode, gr=gr, gc=gc)
+        args = (q["codes"], q["scales"], cb)
+        kw = dict(mode=mode, gr=gr, gc=gc)
+        out = LK.lut_dequant_kv(*args, **kw)
+        want = LK.plain_lut_dequant_kv(*args, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(
+                f"lut_dequant_kv/{mode}/R{R}: not bit-identical to the "
+                f"plain version (max abs err "
+                f"{float((out - want).abs().max()):.3e})")
+        if R < 1000:
+            emit("kernel_check", name="lut_dequant_kv", mode=mode, R=R,
+                 Hkv=Hkv, max_abs_err=0.0)
+            continue
+        run = lambda: LK.lut_dequant_kv(*args, **kw)
+        b_ms, b_by = bound(*dequant_kv_bytes_flops(q, mode, gr, gc),
+                           "float32")
+        tag = "" if Hkv == 2 else f"/Hkv{Hkv}"
+        row = {"name": f"lut_dequant_kv/{mode}/R{R}{tag}",
+               "route": "cuda",
+               "source": DEQUANT_SRC,
+               "replaces": REPLACES["lut_dequant_kv"], "max_abs_err": 0.0,
+               "ms": time_ms(run), "call_ms": call_ms(run),
+               "plain_ms": time_ms(lambda: LK.plain_lut_dequant_kv(
+                   *args, **kw), iters=10),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+               "counter": ("kv", mode, R),
+               "path": kv_r.get((mode, R, Hkv, D))}
+        extra = dict(shape=f"R{R} Hkv{Hkv} D{D}", dtype="float32")
+        if row["path"] is None:  # checked and timed, not on a path
+            emit("kernel_check", **row, **extra)
+            continue
+        emit("kernel", **row, **extra)
+        results.append(row)
 
 
 # ---------------------------------------------------------------------------
@@ -802,6 +852,14 @@ def quantize_phase(results: list, dev: str = "cuda",
 # ---------------------------------------------------------------------------
 
 
+def to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
 def reference_check() -> None:
     import numpy as np
     import torch
@@ -819,15 +877,7 @@ def reference_check() -> None:
                       dtype="float32", qkv_bias=True, tie_embeddings=True)
     params_cpu = quantize_model_params(TR.init_params(cfg, seed=3,
                                                       device="cpu"))
-
-    def to(tree, dev):
-        if isinstance(tree, dict):
-            return {k: to(v, dev) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, dev) for v in tree]
-        return tree.to(dev)
-
-    params_gpu = to(params_cpu, "cuda")
+    params_gpu = to_device(params_cpu, "cuda")
     rng = np.random.default_rng(0)
     B, S, steps, bs, W = 3, 12, 10, 8, 8
     lens = torch.tensor([12, 5, 9], dtype=torch.int32)
@@ -910,6 +960,123 @@ def reference_check() -> None:
              shape=list(got.shape), max_abs_err=err, atol=tol)
 
 
+def reference_family_check(dev: str = "cuda") -> None:
+    """The transformer family's other members, small, W4A16, GPU against
+    CPU from the same weights: an MoE model (8 experts, top-2, capacity
+    drops at its prefill's 36 tokens) on Q8 and Q4 KV, prefill,
+    teacher-forced decode and a ragged partial prefill over cached
+    prefixes (K4), with every call's routing ids equal on both devices;
+    and a ``patch_stub`` model (internvl2's frontend) whose prefill takes
+    a (B, 5, d) patch prefix, then teacher-forced decode."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import ModelConfig, MoEConfig
+    from repro_torch.models import moe as MO
+    from repro_torch.models import transformer as TR
+    from repro_torch.quant.qlinear import quantize_model_params
+    from repro_torch.serving.engine import DecodeEngine
+    from repro_torch.serving.kv_quant import QuantKVPool
+
+    moe_cfg = ModelConfig(name="reference-moe", n_layers=2, d_model=128,
+                          n_heads=4, n_kv_heads=2, d_ff=0, vocab_size=320,
+                          dtype="float32",
+                          moe=MoEConfig(n_experts=8, top_k=2,
+                                        expert_d_ff=64))
+    vlm_cfg = ModelConfig(name="reference-vlm", n_layers=2, d_model=128,
+                          n_heads=4, n_kv_heads=2, d_ff=256, vocab_size=320,
+                          dtype="float32", qkv_bias=True,
+                          frontend="patch_stub")
+    rng = np.random.default_rng(1)
+    B, S, steps, bs, W = 3, 12, 10, 8, 8
+    lens = torch.tensor([12, 5, 9], dtype=torch.int32)
+    toks = torch.from_numpy(rng.integers(3, 300, (B, S)).astype(np.int32))
+    forced = torch.from_numpy(rng.integers(3, 300, (B, steps)).astype(
+        np.int32))
+    emb = torch.from_numpy(rng.standard_normal((B, 5, 128)).astype(
+        np.float32))
+    table = torch.zeros((B, W), dtype=torch.int32)
+    table[:, :4] = torch.arange(1, 1 + B * 4, dtype=torch.int32).reshape(B, 4)
+    routes: list = []
+    orig_route = MO.route
+
+    def recording(logits, m):
+        out = orig_route(logits, m)
+        routes.append(out[1].cpu())
+        return out
+
+    def run(cfg, params, dev, kv_quant, embeddings=None):
+        pool = QuantKVPool(cfg, 1 + B * W, bs, mode=kv_quant, device=dev)
+        cache = {"k": pool.k, "v": pool.v, "table": table.to(dev)}
+        out = [TR.prefill(params, toks.to(dev), cfg, lengths=lens.to(dev),
+                          paged=cache, embeddings=None if embeddings is None
+                          else embeddings.to(dev))]
+        clen = lens.to(dev)
+        for t in range(steps):
+            clen = clen + 1
+            out.append(TR.decode_step(params, forced[:, t:t + 1].to(dev),
+                                      cache, clen, cfg))
+        return torch.stack(out).cpu()
+
+    prompts = torch.from_numpy(rng.integers(3, 300, (2, 20)).astype(
+        np.int32))
+    clens = [16, 11]
+
+    def partial(cfg, params, kv_quant):
+        eng = DecodeEngine(params, cfg, max_len=64, paged=True, block_size=bs,
+                           n_blocks=1 + 4 * W, kv_quant=kv_quant)
+        full = eng.prefill(prompts)
+        ctab = np.zeros((2, eng.table_width), np.int32)
+        suffix = torch.zeros((2, 20 - min(clens)), dtype=torch.int32)
+        for i, c in enumerate(clens):
+            n = -(-c // bs)
+            ctab[i, :n] = full.table[i, :n]
+            eng.pool.retain(full.table[i, :n])
+            suffix[i, :20 - c] = prompts[i, c:]
+        st = eng.prefill(suffix, torch.tensor([20 - c for c in clens],
+                                              dtype=torch.int32),
+                         cached_table=ctab, cached_lens=np.array(clens))
+        return torch.stack([full.pending_logits, st.pending_logits]).cpu()
+
+    # f32 on both sides (tols as reference_check's); the routing ids of
+    # every MoE call must match exactly
+    tols = {"q8": 5e-3, "q4": 5e-2}
+    MO.route = recording
+    try:
+        for cfg, kind in ((moe_cfg, "moe"), (vlm_cfg, "patch_stub")):
+            params_cpu = quantize_model_params(TR.init_params(
+                cfg, seed=4, device="cpu"))
+            params_gpu = to_device(params_cpu, dev)
+            for kv_quant in ("q8", "q4"):
+                e = emb if kind == "patch_stub" else None
+                paths = [("prefill_decode",
+                          lambda p, d: run(cfg, p, d, kv_quant, e))]
+                if kind == "moe":
+                    paths.append(("partial_prefill",
+                                  lambda p, d: partial(cfg, p, kv_quant)))
+                for name, fn in paths:
+                    routes.clear()
+                    got = fn(params_gpu, dev)
+                    n_gpu = len(routes)
+                    want = fn(params_cpu, "cpu")
+                    gpu_ids, cpu_ids = routes[:n_gpu], routes[n_gpu:]
+                    if kind == "moe" and (not gpu_ids or len(gpu_ids) !=
+                                          len(cpu_ids) or any(
+                            not torch.equal(a, b)
+                            for a, b in zip(gpu_ids, cpu_ids))):
+                        raise AssertionError(f"reference/{kind}/{kv_quant}/"
+                                             f"{name}: routing ids differ "
+                                             f"between GPU and CPU")
+                    err = check_close(f"reference/{kind}/{kv_quant}/{name}",
+                                      got, want, tols[kv_quant])
+                    emit("reference", model=kind, kv_quant=kv_quant,
+                         impl="exact", path=name, shape=list(got.shape),
+                         max_abs_err=err, atol=tols[kv_quant],
+                         route_calls=n_gpu)
+    finally:
+        MO.route = orig_route
+
+
 # ---------------------------------------------------------------------------
 # the main path: full-width serving
 # ---------------------------------------------------------------------------
@@ -956,6 +1123,20 @@ SERVE_PATHS["spec/self"] = ("q8", "exact", SERVE_ARGS + [
 SERVE_PATHS["spec/draft"] = ("q8", "exact", SERVE_ARGS + [
     "--kv-quant", "q8", "--spec-k", "4", "--draft-model", "qwen2.5-1.5b"],
     4, 8)
+# olmoe-1b-7b at its published width (16 layers, 64 experts of width
+# 1024, top-8), W4A16 (Q4 attention projections and expert gate/up, Q8
+# expert down): continuous Best-of-8 over 2 tasks x 48 tokens on Q8 KV
+# with exact softmax, Q4 KV with the LUT softmax, and Q8 KV with the
+# prefix cache over a shared 3-shot header (the second task's group hits)
+MOE_ARGS = ["--arch", MOE_ARCH, "--quantize", "--method", "best_of_n",
+            "--budget", "8", "--tasks", "2", "--continuous", "--paged"]
+MOE_PATHS = ("moe/q8", "moe/q4lut", "moe/prefix")
+SERVE_PATHS["moe/q8"] = ("q8", "exact", MOE_ARGS + ["--kv-quant", "q8"],
+                         2, 8)
+SERVE_PATHS["moe/q4lut"] = ("q4", "lut", MOE_ARGS + ["--kv-quant", "q4"],
+                            2, 8)
+SERVE_PATHS["moe/prefix"] = ("q8", "exact", MOE_ARGS + [
+    "--kv-quant", "q8", "--prefix-cache", "--fewshot", "3"], 2, 8)
 # the largest logit gap, in the spec/base run, between the token it chose
 # and the token a speculative path chose at a row's first divergence: a
 # near-tie flipped by the verify's other arithmetic (chunked attention
@@ -1025,7 +1206,7 @@ def spec_parity(spec: dict, eos_id: int) -> None:
                                  f"near-tie (gap > {SPEC_GAP}): {bad}")
 
 
-def serve_runs(n_layers: int = 28) -> dict:
+def serve_runs() -> dict:
     """Drive the serve entry point once per path.  Launch counts are reset
     just before and read just after each run, and kept per run, with the
     engine's prefill calls and decode steps recorded on their own (by
@@ -1039,7 +1220,9 @@ def serve_runs(n_layers: int = 28) -> dict:
     ``reorder`` calls are recorded to check that every task finished.
     The CUDA memory peak is reset once ``serve.build_engine`` returns, so
     ``peak_device_bytes`` covers serving and ``load_peak_device_bytes``
-    the weights' random init and quantization.
+    the weights' random init and quantization.  The expected launch
+    counts follow the served model (its layers, its Q4 projections per
+    layer: ``gemm_layout``, its block size).
 
     Speculative paths: a round is ``ContinuousScheduler._spec_step``,
     timed to its end by a synchronize, its committed tokens the verify's
@@ -1049,7 +1232,8 @@ def serve_runs(n_layers: int = 28) -> dict:
     steps are counted apart (they launch no kernel).  The spec/base run
     keeps each row's top-``TOPK`` logits per step for ``spec_parity``.
     Returns ({path: {"counts": {wrapper: n}, "shapes": {(M, K, N): n},
-    "kv_shapes": {(mode, R): n}}}, {spec path: {"tokens", "top"}})."""
+    "kv_shapes": {(mode, R): n}, "kv_geom": (Hkv, D)}}, {spec path:
+    {"tokens", "top"}})."""
     import numpy as np
     import torch
 
@@ -1232,26 +1416,29 @@ def serve_runs(n_layers: int = 28) -> dict:
                 f"target (expected {want_draft}), {drafter_steps[0]} on "
                 f"the drafter")
         # one attention launch per layer per target decode step (plain or
-        # draft); two Q4 projections per layer at each (K, N) per target
-        # decode step (M = the step's rows: the slots, or the direct
-        # path's batch), per prefill (M = batch x padded width) and per
-        # verify (M = slots x W); two KV dequant launches (K and V) per
-        # partial prefill and per verify, a verify's at R = layers x
+        # draft); the model's Q4 projections per layer at each (K, N) per
+        # target decode step (M = the step's rows: the slots, or the
+        # direct path's batch), per prefill (M = batch x padded width) and
+        # per verify (M = slots x W); two KV dequant launches (K and V)
+        # per partial prefill and per verify, a verify's at R = layers x
         # slots x prefix width x block size
+        cfg = built["engine"].cfg
+        n_layers, bs = cfg.n_layers, built["engine"].pool.block_size
         attn = "paged_attention" if kv_quant == "none" else \
             "quant_paged_attention"
         want = {attn: n_layers * (len(steps) + len(draft_steps)),
                 "lut_dequant_kv": 2 * (partial + len(verifies)),
                 # K5 and K6 are off the served path, as in the JAX package
                 "lut_softmax_attention": 0, "tile_quantize": 0}
-        for k, n in GEMM_KN:
+        for (k, n), per_layer in gemm_layout(cfg).items():
             for m in ([rows_ for rows_, _ in steps] + draft_steps
                       + [b * width for b, width, _ in prefills]
                       + [b * w for b, w, _ in verifies]):
-                want[(m, k, n)] = want.get((m, k, n), 0) + 2 * n_layers
+                want[(m, k, n)] = want.get((m, k, n), 0) + \
+                    per_layer * n_layers
         want_kv = {}
         for b, _, pw in verifies:
-            key = (kv_quant, n_layers * b * pw * 16)
+            key = (kv_quant, n_layers * b * pw * bs)
             want_kv[key] = want_kv.get(key, 0) + 2
         got = {**counts, **shapes}
         if any(got.get(key, 0) != n for key, n in want.items()) or \
@@ -1260,7 +1447,8 @@ def serve_runs(n_layers: int = 28) -> dict:
             raise AssertionError(f"serve {path}: launches {got} "
                                  f"{kv_shapes}, expected {want} {want_kv}")
         runs[path] = {"counts": counts, "shapes": shapes,
-                      "kv_shapes": kv_shapes}
+                      "kv_shapes": kv_shapes,
+                      "kv_geom": (cfg.n_kv_heads, cfg.resolved_head_dim())}
         if path in SPEC_PATHS:
             spec[path] = {"tokens": {
                 (smp.req_id, smp.sample_idx): list(smp.tokens)
@@ -1279,7 +1467,7 @@ def serve_runs(n_layers: int = 28) -> dict:
             sum(c for c, _ in rounds)
         step_s = np.array([dt for _, dt in steps] + [dt for _, dt in rounds])
         p50, p99 = (float(np.percentile(step_s, q)) for q in (50, 99))
-        emit("serve", path=path, kv_quant=kv_quant, impl=impl,
+        emit("serve", path=path, arch=cfg.name, kv_quant=kv_quant, impl=impl,
              method=row["method"],
              route="scheduler" if s is not None else "direct",
              accuracy=row["accuracy"], decode_tokens=decode,
@@ -1340,7 +1528,8 @@ def serve_runs(n_layers: int = 28) -> dict:
 # canary off, to split that cost; Q4/LUT with both on, where the canary
 # measures the LUT softmax's drift over Q4 KV; q8/prefix with both on
 # (cache-hit admission steps); spec/self with the tracer (a round's
-# verify against the rest).
+# verify against the rest); olmoe-1b-7b on Q8/exact with both on, whose
+# canary bounds K1/K2's drift at its full width.
 OBSERVE_ARGS = SERVE_ARGS + ["--tasks", "2"]
 CANARY_RATE = 0.25
 OBSERVE_RUNS = (
@@ -1354,6 +1543,7 @@ OBSERVE_RUNS = (
      True, CANARY_RATE),
     ("spec/self/trace", "q8", "exact", ["--spec-k", "4", "--self-draft"],
      True, None),
+    ("moe/q8/on", "q8", "exact", ["--arch", MOE_ARCH], True, CANARY_RATE),
 )
 SPAN_KEYS = ("admit", "prefill", "plan", "decode", "step", "prm",
              "spec_verify")
@@ -1400,7 +1590,7 @@ def trace_stats(trace: dict) -> dict:
     }
 
 
-def observe_runs(n_layers: int = 28) -> list:
+def observe_runs() -> list:
     """Serve through ``launch/serve.py`` with ``--trace`` and ``--profile
     --canary-rate`` (or neither) per ``OBSERVE_RUNS``, the counters
     reset just before each run and read just after, and the launches of
@@ -1408,10 +1598,11 @@ def observe_runs(n_layers: int = 28) -> list:
     wrapping ``DecodeEngine._canary_step``.  Each traced run's trace and
     report, written under ``build/observe/``, must pass the port's
     validators; a profiled run's per-op calls must equal the launch
-    counters less the canary's (28 paged attention per decode step, 168
-    K3 per decode step, prefill and verify, 2 K4 per partial prefill),
-    the canary (where on) must launch 168 K3 and no paged attention per
-    sample; a
+    counters less the canary's (one paged attention per layer and decode
+    step, the model's Q4 projections (``gemm_layout``) per layer and
+    decode step, prefill and verify, 2 K4 per partial prefill), the
+    canary (where on) must launch those Q4 projections and no paged
+    attention per sample; a
     speculative run must record one ``spec_verify`` span per round.
     Decode tok/s is the scheduler's (decode tokens over its step walls)
     and the wall's (over the time from the engine's build to the serve's
@@ -1450,6 +1641,7 @@ def observe_runs(n_layers: int = 28) -> list:
             engine, tok = orig_build(a)
             torch.cuda.synchronize()
             built["t0"] = time.perf_counter()
+            built["cfg"] = engine.cfg
             return engine, tok
 
         def canary_step(self, *a, **kw):
@@ -1477,7 +1669,11 @@ def observe_runs(n_layers: int = 28) -> list:
         s = rows[0]["serving"]
         in_canary = {k: sum(c[k] for c in canary) for k in counts}
         attn = "quant_paged_attention"
-        line = {"path": name, "kv_quant": kv, "impl": impl,
+        cfg = built["cfg"]
+        n_layers = cfg.n_layers
+        k3_fwd = n_layers * sum(gemm_layout(cfg).values())
+        line = {"path": name, "arch": cfg.name, "kv_quant": kv,
+                "impl": impl,
                 "tracer": traced, "profiler": profiled,
                 "canary_rate": canary_rate,
                 "steps": s["steps"], "decode_tokens": s["decode_tokens"],
@@ -1488,9 +1684,10 @@ def observe_runs(n_layers: int = 28) -> list:
                 "step_time_p99_ms": s["step_time_p99"] * 1e3,
                 "prefill_calls": s["prefill_calls"],
                 "launches": counts}
-        # every path's kernels: 28 attention launches per decode step on
-        # the target (a self-draft round's snapshot steps included) and
-        # none elsewhere; K3 and K4 checked through the profile below
+        # every path's kernels: one attention launch per layer and decode
+        # step on the target (a self-draft round's snapshot steps
+        # included) and none elsewhere; K3 and K4 checked through the
+        # profile below
         if traced:
             trace = json.loads(trace_path.read_text())
             bad = validate_chrome_trace(trace)
@@ -1533,7 +1730,7 @@ def observe_runs(n_layers: int = 28) -> list:
                                        n_layers * ph["decode"]["calls"]),
                 "lut_dequant_matmul": (
                     counts["lut_dequant_gemm"]
-                    - in_canary["lut_dequant_gemm"], 6 * n_layers * fwd),
+                    - in_canary["lut_dequant_gemm"], k3_fwd * fwd),
                 "lut_dequant_kv": (counts["lut_dequant_kv"]
                                    - in_canary["lut_dequant_kv"],
                                    counts["lut_dequant_kv"]),
@@ -1548,7 +1745,7 @@ def observe_runs(n_layers: int = 28) -> list:
             n_can = s["canary_samples"]
             if n_can != len(canary) or (n_can < 1) != (canary_rate == 0) or \
                     in_canary[attn] != 0 or \
-                    in_canary["lut_dequant_gemm"] != 6 * n_layers * n_can:
+                    in_canary["lut_dequant_gemm"] != k3_fwd * n_can:
                 raise AssertionError(f"observe {name}: canary {n_can} "
                                      f"samples, launches {in_canary}")
             line.update(
@@ -1584,10 +1781,16 @@ def observe_runs(n_layers: int = 28) -> list:
     return lines
 
 
-def profile_decode() -> None:
+def profile_decode(base_args: list = SERVE_ARGS) -> None:
     """Where a decode step's time goes at full width: one Best-of-8 task
-    (Q8 KV, exact softmax) served under ``torch.profiler``; device busy
-    share = summed kernel time over the serve's wall time."""
+    (Q8 KV, exact softmax) of ``base_args``'s model served under
+    ``torch.profiler``; device busy share = summed kernel time over the
+    serve's wall time.  For an MoE model, the experts' share: each
+    layer's expert dequant (``moe.expert_weights``: Q4 gate/up and Q8
+    down to f32, then bf16) and expert products
+    (``moe.dispatch_compute_combine`` at the step's 8 rows), timed with
+    CUDA events on layer 0's weights, times the layers, over the step's
+    device and wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1596,8 +1799,8 @@ def profile_decode() -> None:
     from repro_torch.data import tasks as T
     from repro_torch.launch import serve
 
-    args = serve.parse_args(SERVE_ARGS + ["--kv-quant", "q8", "--tasks", "1",
-                                          "--max-tokens", "16"])
+    args = serve.parse_args(base_args + ["--kv-quant", "q8", "--tasks", "1",
+                                         "--max-tokens", "16"])
     engine, tok = serve.build_engine(args)
     tasks = T.gen_dataset(123, 1)
     spec = TTSSpec("best_of_n", args.budget, args.max_tokens)
@@ -1630,7 +1833,12 @@ def profile_decode() -> None:
     k3_ms, k3_n = by_kernel("tc_gemm_kernel", "tile_gemm_kernel",
                             "fma_gemm_kernel")
     k2_ms, k2_n = by_kernel("paged_attention_kernel", "fold_kernel")
-    emit("profile", kv_quant="q8", impl="exact", steps=steps,
+    cfg = engine.cfg
+    extra = {}
+    if cfg.moe:
+        extra = moe_step_costs(engine, device_ms / steps,
+                               wall * 1e3 / steps)
+    emit("profile", arch=cfg.name, kv_quant="q8", impl="exact", steps=steps,
          k3_device_ms_per_step=k3_ms, k3_kernel_launches=k3_n,
          k2_device_ms_per_step=k2_ms, k2_kernel_launches=k2_n,
          wall_ms_per_step=wall * 1e3 / steps,
@@ -1639,7 +1847,48 @@ def profile_decode() -> None:
          aten_ops_per_step=cpu_ops / steps,
          top_kernels=[{"name": e.key[:80], "count": e.count,
                        "device_ms": e.self_device_time_total / 1e3}
-                      for e in top])
+                      for e in top], **extra)
+
+
+def moe_step_costs(engine, device_ms: float, wall_ms: float) -> dict:
+    """An MoE decode step's expert work at 8 rows, timed with CUDA events
+    on layer 0's experts: the dequant of all experts (the bytes it must
+    move: codes, scales and codebooks in, bf16 stacks out) and the routed
+    products over the (E, C, d) buffer; per step, times the layers, and as
+    shares of the step's device and wall ms."""
+    import torch
+
+    from repro_torch.models import moe as MO
+
+    cfg, p = engine.cfg, engine.params["layers"][0]["moe"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((8, cfg.d_model), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    logits = torch.matmul(x, p["router"]["w"].to(x.dtype))
+    weights, ids, _ = MO.route(logits, cfg.moe)
+    ex = MO.expert_weights(p["experts"], torch.bfloat16)
+    deq_ms = time_ms(lambda: MO.expert_weights(p["experts"], torch.bfloat16),
+                     iters=10)
+    prod_ms = time_ms(lambda: MO.dispatch_compute_combine(
+        x, weights, ids, ex, cfg.moe), iters=20)
+    del ex
+    nbytes = sum(t.numel() * t.element_size() for leaf in p["experts"].values()
+                 for t in leaf.values())
+    nbytes += sum(2 * leaf["codes"].shape[0] * leaf["codes"].shape[1]
+                  * leaf["codes"].shape[2] * (2 if "codebook" in leaf else 1)
+                  for leaf in p["experts"].values())   # bf16 stacks out
+    L = cfg.n_layers
+    b_ms, _ = bound(nbytes, 0, "bfloat16")
+    return {"expert_dequant_ms_per_layer": deq_ms,
+            "expert_dequant_bytes_per_layer": nbytes,
+            "expert_dequant_bound_ms_per_layer": b_ms,
+            "expert_products_ms_per_layer": prod_ms,
+            "expert_dequant_ms_per_step": deq_ms * L,
+            "expert_products_ms_per_step": prod_ms * L,
+            "expert_dequant_share_of_device": deq_ms * L / device_ms,
+            "expert_products_share_of_device": prod_ms * L / device_ms,
+            "expert_dequant_share_of_wall": deq_ms * L / wall_ms,
+            "expert_products_share_of_wall": prod_ms * L / wall_ms}
 
 
 def kernel_rows(results: list, runs: dict, phases: dict) -> list:
@@ -1694,27 +1943,30 @@ def main() -> int:
     results: list = []
     check_paged_kernels(results)
     reference_check()
+    reference_family_check()
     runs, spec = serve_runs()
     spec_parity(spec, spec.pop("eos_id"))
     observe_runs()
     # K3 and K4 at the shapes the serve runs launched them with: K3's M on
     # the north-star path (8 decode slots, a Best-of-N group's padded
     # prompt), on the prefix paths (each prefill's batch x its longest
-    # suffix), on the TTS paths (the direct path's 64-token prompt width)
-    # and on the speculative paths (the verify's 8 slots x W); K4's R on
-    # the prefix paths and the verify's prefix gathers
-    gemm_m, kv_r = {}, {}
+    # suffix), on the TTS paths (the direct path's 64-token prompt width),
+    # on the speculative paths (the verify's 8 slots x W) and on the
+    # olmoe-1b-7b paths (its (2048, 2048) projections); K4's R on the
+    # prefix paths and the verify's prefix gathers
+    gemm_mkn, kv_r = {}, {}
     for path in ("q8/exact", "q8/prefix", "q4/prefix", "sc/direct",
-                 "beam/sched", "beam/direct") + SPEC_PATHS:
-        for m, _, _ in runs[path]["shapes"]:
-            gemm_m.setdefault(m, path)
-        for key in runs[path]["kv_shapes"]:
-            kv_r.setdefault(key, path)
-    check_gemm_kernel(results, gemm_m)
+                 "beam/sched", "beam/direct") + SPEC_PATHS + MOE_PATHS:
+        for mkn in runs[path]["shapes"]:
+            gemm_mkn.setdefault(mkn, path)
+        for mode, r in runs[path]["kv_shapes"]:
+            kv_r.setdefault((mode, r, *runs[path]["kv_geom"]), path)
+    check_gemm_kernel(results, gemm_mkn)
     check_dequant_kv_kernel(results, kv_r)
     phases = {"flash": flash_phase(results),
               "quantize": quantize_phase(results)}
     profile_decode()
+    profile_decode(MOE_ARGS)
 
     kernels = kernel_rows(results, runs, phases)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -37,6 +37,15 @@ from repro_torch.kernels import build
 build.build_all()
 rows = []
 from repro_torch.kernels import ops, paged_attention as PA
+# the served shapes, keyed as the tree's checks take them: a tree with
+# gemm_layout keys K3 by (M, K, N) and K4 by (mode, R, Hkv, D), an older
+# one by M and by (mode, R) at qwen2.5-1.5b's (K, N) and (Hkv, D)
+kv_r = {{("q8", 1792): "q8/prefix", ("q4", 12544): "q4/prefix"}}
+gemm = {{8: "q8/exact", 14: "q8/exact", 79: "q8/prefix", 133: "q4/prefix"}}
+if hasattr(c, "gemm_layout"):
+    kv_r = {{(m, r, 2, 128): p for (m, r), p in kv_r.items()}}
+    gemm = {{(m, k, n): p for m, p in gemm.items()
+            for k, n in ((1536, 1536), (1536, 256), (1536, 8960))}}
 if {flash!r}:
     from repro_torch.kernels import lut_softmax_attention as LA
     from repro_torch.kernels.autotune import pick_block
@@ -62,8 +71,7 @@ if {flash!r}:
             rows.append({{"name": name, "ms": c.time_ms(run)}})
             if shared is not None:
                 LA._LUT_IN_SHARED = None
-    c.check_dequant_kv_kernel(rows, {{("q8", 1792): "q8/prefix",
-                                     ("q4", 12544): "q4/prefix"}})
+    c.check_dequant_kv_kernel(rows, kv_r)
 else:
     c.check_paged_kernels(rows)
 # each paged wrapper at 17 times the decode rows (B Hkv = 272), timed only
@@ -78,8 +86,7 @@ for kind in (() if {flash!r} else ("fp", "q8", "q4")):
                      "ms": c.time_ms(lambda: wr(*big, lut, *extra,
                                                 exp_mode=mode))}})
 if {gemm!r}:
-    c.check_gemm_kernel(rows, {{8: "q8/exact", 14: "q8/exact",
-                               79: "q8/prefix", 133: "q4/prefix"}})
+    c.check_gemm_kernel(rows, gemm)
 print("ROWS " + json.dumps({{r["name"]: r["ms"] for r in rows}}))
 """
 

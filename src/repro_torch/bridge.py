@@ -3,8 +3,11 @@
 The caller fetches the JAX tree to the host (``jax.device_get``), so it
 arrives as nested dicts of numpy arrays and this module imports no JAX.
 Stacked ``(L, ...)`` layer leaves under ``"layers"`` are split into the
-port's per-layer list; quantized leaves ({"codes", "scales"[,
-"codebook"]}) are copied byte for byte; ``ml_dtypes`` bfloat16 arrays
+port's per-layer list (an MoE layer's ``moe/router/w`` and its
+``moe/experts/{gate,up,down}`` stacks of shape (E, ...) included);
+quantized leaves ({"codes", "scales"[, "codebook"]}, an expert stack's
+with one codebook row per expert) are copied byte for byte, and so are
+top-level leaves such as ``patch_proj``; ``ml_dtypes`` bfloat16 arrays
 travel through a uint16 view.
 """
 from __future__ import annotations

@@ -1,14 +1,26 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's
-entry points.  Lists only the architectures the port serves."""
+entry points.  Lists only the architectures the port serves: the
+transformer family of the JAX package's registry (dense, GQA, QKV bias,
+sliding window, local:global, MoE, and the ``patch_stub`` modality
+frontend)."""
 from __future__ import annotations
 
 import importlib
+from typing import List
 
 from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES = {
-    # the paper's primary on-device model
+    "gemma3-1b": "gemma3_1b",
+    "stablelm-3b": "stablelm_3b",
+    "qwen2.5-14b": "qwen2_5_14b",
+    "command-r-35b": "command_r_35b",
+    "internvl2-1b": "internvl2_1b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    # the paper's own models
     "qwen2.5-1.5b": "qwen2_5_1_5b",
+    "llama3.2-1b": "llama3_2_1b",
 }
 
 
@@ -22,3 +34,6 @@ def get_config(arch: str, *, smoke: bool = False) -> ModelConfig:
     mod = _module(arch)
     return mod.SMOKE if smoke else mod.CONFIG
 
+
+def list_archs() -> List[str]:
+    return list(_ARCH_MODULES)

@@ -20,8 +20,10 @@ drafted by the target itself or by a small registry model.  ``--trace``
 writes the scheduler's Chrome trace (validate it with ``python -m
 repro_torch.serving.telemetry``), ``--profile`` the kernel profile with
 its numerics canary (``python -m repro_torch.serving.profiling``), and
-``--metrics`` prints every summary key.  Weights are random, from a
-seeded generator (the repository ships no checkpoint).  ``--smoke``
+``--metrics`` prints every summary key.  ``--arch`` takes every config
+of ``configs/registry.py``: the transformer family, dense and MoE
+(olmoe-1b-7b, mixtral-8x7b).  Weights are random, from a seeded
+generator (the repository ships no checkpoint).  ``--smoke``
 selects the reduced config; ``--device cpu`` runs the kernels' plain
 versions on the CPU.  The paged-attention exp mode comes from
 ``REPRO_TORCH_PAGED_ATTN`` (exact | lut).
@@ -34,7 +36,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.registry import get_config
+from repro_torch.configs.registry import get_config, list_archs
 from repro_torch.core import reward as R
 from repro_torch.core.controller import TTSSpec, sweep
 from repro_torch.data import tasks as T
@@ -53,7 +55,7 @@ MAX_LEN = 256
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=list_archs())
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--method", default="best_of_n",
                     choices=["best_of_n", "self_consistency", "beam_search"])

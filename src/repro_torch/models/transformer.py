@@ -1,14 +1,19 @@
-"""Dense GQA decoder-only transformer (the qwen2.5 family) with a paged
-or a dense KV cache.
+"""Decoder-only transformer covering the dense / GQA / bias / sliding
+window / local:global / MoE members of the JAX package's architecture
+pool, with a paged or a dense KV cache.
 
 Parameters are a dict {"embedding": {"table"}, "layers": [per-layer
-dict, ...], "final_norm": {"scale"}}; the layers run as a Python loop
-(the JAX package scans stacked layer leaves instead; ``bridge`` splits
-them).  Both KV layouts are updated **in place**.  The paged layout is a
-block pool: ``prefill`` scatters the prompt's KV into the rows' blocks
-and ``decode_step`` writes one token per row, both through per-row block
-tables.  The dense layout (``init_cache``) gives every row its own
-(max_len, Hkv, D) slots per layer.
+dict, ...], "final_norm": {"scale"}[, "lm_head"][, "patch_proj"]}; a
+layer holds a SwiGLU "ffn" or an MoE "moe" (``models/moe.py``).  The
+layers run as a Python loop (the JAX package scans stacked layer leaves
+instead; ``bridge`` splits them).  Both KV layouts are updated **in
+place**.  The paged layout is a block pool: ``prefill`` scatters the
+prompt's KV into the rows' blocks and ``decode_step`` writes one token
+per row, both through per-row block tables.  The dense layout
+(``init_cache``) gives every row its own (max_len, Hkv, D) slots per
+layer.  A ``patch_stub`` frontend (internvl2) takes precomputed
+modality embeddings through ``patch_proj`` in place of the first P
+positions' token embeddings.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.moe import init_moe, moe_ffn
 
 
 def layer_windows(cfg: ModelConfig) -> list[int]:
@@ -40,9 +46,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
     (CUDA unless asked otherwise), in ``cfg.param_dtype``.  Same
     distributions as the JAX package's init; not the same numbers."""
-    if cfg.family != "transformer" or cfg.moe is not None:
-        raise ValueError(f"the port supports dense transformers only, got "
-                         f"{cfg.family!r}")
+    if cfg.family != "transformer":
+        raise ValueError(f"the port's transformer module serves the "
+                         f"transformer family, got {cfg.family!r}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -61,7 +67,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim()
     layers = []
     for _ in range(cfg.n_layers):
-        layers.append({
+        layer = {
             "attn_norm": norm(),
             "attn": {
                 "wq": dense(d, cfg.n_heads * hd, cfg.qkv_bias),
@@ -70,9 +76,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
                 "wo": dense(cfg.n_heads * hd, d),
             },
             "ffn_norm": norm(),
-            "ffn": {"gate": dense(d, cfg.d_ff), "up": dense(d, cfg.d_ff),
-                    "down": dense(cfg.d_ff, d)},
-        })
+        }
+        if cfg.moe:
+            layer["moe"] = init_moe(cfg, gen, dtype, dev)
+        else:
+            layer["ffn"] = {"gate": dense(d, cfg.d_ff),
+                            "up": dense(d, cfg.d_ff),
+                            "down": dense(cfg.d_ff, d)}
+        layers.append(layer)
     table = torch.randn((cfg.vocab_size, d), generator=gen, device=dev) * 0.02
     params = {"embedding": {"table": table.to(dtype)}, "layers": layers,
               "final_norm": norm()}
@@ -80,6 +91,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
         head = torch.randn((cfg.vocab_size, d), generator=gen,
                            device=dev) * 0.02
         params["lm_head"] = {"table": head.to(dtype)}
+    if cfg.frontend == "patch_stub":
+        params["patch_proj"] = dense(d, d)
     return params
 
 
@@ -123,8 +136,12 @@ def _layer(p, x, cfg, *, positions, window, cache=None, cache_len=None,
         positions=positions, window=window, cache=cache, cache_len=cache_len,
         prefix_kv=prefix_kv, prefix_positions=prefix_positions)
     x = x + h
-    x = x + L.swiglu(p["ffn"], L.rmsnorm(p["ffn_norm"], x, cfg.norm_eps))
-    return x, kv
+    hn = L.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
+    if "moe" in p:
+        h, _ = moe_ffn(p["moe"], hn, cfg)
+    else:
+        h = L.swiglu(p["ffn"], hn)
+    return x + h, kv
 
 
 def _head(params, cfg):
@@ -133,11 +150,13 @@ def _head(params, cfg):
 
 def forward(params, tokens, cfg: ModelConfig, *,
             logit_positions: Optional[torch.Tensor] = None,
-            return_kv: bool = False, prefix: Optional[dict] = None):
+            return_kv: bool = False, prefix: Optional[dict] = None,
+            embeddings: Optional[torch.Tensor] = None):
     """Full-sequence forward.  tokens: (B, S).  Returns (logits, kvs):
     logits (B, S, V) f32, or (B, V) at ``logit_positions`` (B,); kvs as
     :func:`trunk` returns them."""
-    x, kvs = trunk(params, tokens, cfg, return_kv=return_kv, prefix=prefix)
+    x, kvs = trunk(params, tokens, cfg, return_kv=return_kv, prefix=prefix,
+                   embeddings=embeddings)
     if logit_positions is not None:
         B = tokens.shape[0]
         x = x[torch.arange(B, device=x.device), logit_positions.long()]
@@ -145,7 +164,8 @@ def forward(params, tokens, cfg: ModelConfig, *,
 
 
 def trunk(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
-          prefix: Optional[dict] = None):
+          prefix: Optional[dict] = None,
+          embeddings: Optional[torch.Tensor] = None):
     """The layers and final norm, without the LM head (the reward model
     puts its own head on them).  tokens: (B, S).  Returns (x, kvs): x
     (B, S, d_model) in ``cfg.dtype``; kvs the per-layer rope'd (k, v) of
@@ -157,9 +177,20 @@ def trunk(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
     suffix: token j of row b sits at position ``len[b] + j``, queries
     attend over prefix + suffix, and the returned KV covers the suffix
     alone.  Prefix slots at or past a row's cached length get position
-    ``P + S``, past every query, so the causal mask hides them."""
+    ``P + S``, past every query, so the causal mask hides them.
+
+    ``embeddings``: optional (B, P, d) modality-stub prefix (VLM patches)
+    which, through ``patch_proj``, replaces the embedding of the first P
+    positions; it cannot be combined with a cached ``prefix``."""
     dtype = getattr(torch, cfg.dtype)
     x = L.embed(params["embedding"], tokens, dtype)
+    if embeddings is not None:
+        if prefix is not None:
+            raise NotImplementedError(
+                "modality-stub embeddings cannot be combined with a cached "
+                "prefix (the patch positions would be ambiguous)")
+        pre = L.linear(params["patch_proj"], embeddings.to(dtype))
+        x = torch.cat([pre, x[:, embeddings.shape[1]:]], dim=1)
     B, S = tokens.shape
     arange = torch.arange(S, dtype=torch.int32, device=tokens.device)[None]
     prefix_positions = None
@@ -235,7 +266,8 @@ def _scatter_suffix_blocks(pool, kv, table, block_size: int, start) -> None:
 
 def prefill(params, tokens, cfg: ModelConfig, *, lengths,
             paged: Optional[dict] = None, cache: Optional[dict] = None,
-            prefix: Optional[dict] = None):
+            prefix: Optional[dict] = None,
+            embeddings: Optional[torch.Tensor] = None):
     """Run right-padded prompts and write their KV into a cache, in place.
     Exactly one of ``paged`` and ``cache`` is given.
 
@@ -251,7 +283,8 @@ def prefill(params, tokens, cfg: ModelConfig, *, lengths,
     ``prefix``: a cached-prefix handle (see :func:`forward`) for partial
     prefill, paged only; ``tokens``/``lengths`` then describe only the
     uncached suffix, whose KV is written into the table at offset
-    ``prefix["len"]`` while the cached positions stay untouched."""
+    ``prefix["len"]`` while the cached positions stay untouched.
+    ``embeddings``: the modality-stub prefix of :func:`trunk`."""
     from repro_torch.serving.kv_quant import pool_block_size
 
     if (paged is None) == (cache is None):
@@ -260,7 +293,8 @@ def prefill(params, tokens, cfg: ModelConfig, *, lengths,
         raise ValueError("partial prefill over a cached prefix requires the "
                          "paged cache layout")
     logits, kvs = forward(params, tokens, cfg, logit_positions=lengths - 1,
-                          return_kv=True, prefix=prefix)
+                          return_kv=True, prefix=prefix,
+                          embeddings=embeddings)
     if cache is not None:
         S = tokens.shape[1]
         for layer, (k, v) in enumerate(kvs):

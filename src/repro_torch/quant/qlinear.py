@@ -51,13 +51,25 @@ DEFAULT_POLICY = [
 ]
 
 
+def _stacked(fn, w: torch.Tensor) -> dict:
+    """``fn`` over every (K, N) matrix of a stacked (..., K, N) weight (an
+    MoE layer's experts), one matrix at a time, each output leaf stacked
+    back behind the same leading dims: the codebook too, once per matrix,
+    (..., 16), as the JAX package's ``vmap`` broadcasts it."""
+    lead = w.shape[:-2]
+    parts = [fn(m) for m in w.reshape(-1, *w.shape[-2:])]
+    return {k: torch.stack([p[k] for p in parts]).reshape(
+        *lead, *parts[0][k].shape) for k in parts[0]}
+
+
 def quantize_model_params(params, *, scheme: str = "tile",
                           codebook: str = "q4_0", group_size: int = 32,
                           policy=None):
-    """Quantize eligible 2-D weights in a parameter tree (nested dicts and
+    """Quantize eligible weights in a parameter tree (nested dicts and
     per-layer lists).  Returns a new tree in which quantized leaves are
     dicts {"codes", "scales"[, "codebook"]}; each weight is quantized on
-    its own device, one layer at a time."""
+    its own device, one layer at a time, and a stacked weight of rank 3
+    or 4 (experts) one matrix at a time."""
     policy = policy or DEFAULT_POLICY
 
     def decide(path: str):
@@ -73,20 +85,43 @@ def quantize_model_params(params, *, scheme: str = "tile",
         if isinstance(node, list):
             return [walk(v, f"{path}/{i}") for i, v in enumerate(node)]
         sch = decide(path)
-        if sch is None or node.ndim != 2:
+        if sch is None or node.ndim not in (2, 3, 4):
             return node
         if sch == "q4":
-            return TQ.quantize(node, scheme=scheme, codebook=codebook,
-                               group_size=group_size)
-        return TQ.quantize_q8(node, group_size=group_size)
+            fn = lambda w: TQ.quantize(w, scheme=scheme, codebook=codebook,
+                                       group_size=group_size)
+        else:
+            fn = lambda w: TQ.quantize_q8(w, group_size=group_size)
+        return fn(node) if node.ndim == 2 else _stacked(fn, node)
 
     return walk(params, "")
 
 
+def dequantize_leaf(leaf: dict, group_size: int = 32) -> torch.Tensor:
+    """One quantized leaf (stacked or not) back to f32."""
+    if "codebook" in leaf:
+        return TQ.dequantize(leaf, group_size=group_size)
+    return TQ.dequantize_q8(leaf, group_size=group_size)
+
+
+def dequantize_model_params(params, group_size: int = 32):
+    """Inverse of :func:`quantize_model_params`: every quantized leaf back
+    to an f32 weight of its original shape (for accuracy baselines and
+    the MoE experts, which run as dense batched products)."""
+    if is_quantized(params):
+        return dequantize_leaf(params, group_size)
+    if isinstance(params, dict):
+        return {k: dequantize_model_params(v, group_size)
+                for k, v in params.items()}
+    if isinstance(params, list):
+        return [dequantize_model_params(v, group_size) for v in params]
+    return params
+
+
 # leaves the model casts to the compute dtype at every use (linear weights
-# and biases, the embedding table); norm scales stay f32 like the math
-# that reads them
-_COMPUTE_LEAVES = ("w", "b", "table")
+# and biases, the embedding table, fp expert stacks); norm scales stay f32
+# like the math that reads them
+_COMPUTE_LEAVES = ("w", "b", "table", "gate", "up", "down")
 
 
 def cast_params(params, dtype: torch.dtype):

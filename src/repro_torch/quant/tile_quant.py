@@ -13,6 +13,8 @@ arithmetic, round-to-nearest-even f16 scales and first-index argmin.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.quant.codebooks import codebook_absmax, get_codebook
@@ -25,14 +27,15 @@ _ARGMIN_ROWS = 256
 
 
 def pack_int4(codes: torch.Tensor) -> torch.Tensor:
-    """(K, N) uint8 in [0,15] -> (K, N//2) packed: low nibble = even col."""
-    return codes[:, 0::2] | (codes[:, 1::2] << 4)
+    """(..., K, N) uint8 in [0,15] -> (..., K, N//2) packed: low nibble =
+    even col."""
+    return codes[..., 0::2] | (codes[..., 1::2] << 4)
 
 
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
-    """(K, N//2) uint8 -> (K, N) uint8 in [0,15]."""
-    K, Nh = packed.shape
-    return torch.stack([packed & 0xF, packed >> 4], dim=-1).reshape(K, Nh * 2)
+    """(..., K, N//2) uint8 -> (..., K, N) uint8 in [0,15]."""
+    return torch.stack([packed & 0xF, packed >> 4], dim=-1).reshape(
+        *packed.shape[:-1], packed.shape[-1] * 2)
 
 
 def _nearest_code(wn: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
@@ -86,26 +89,39 @@ def quantize(w: torch.Tensor, *, scheme: str = "tile", codebook: str = "q4_0",
 
 def infer_scheme(qw: dict, group_size: int = 32) -> str:
     """Recover the group geometry from array shapes."""
-    K = qw["codes"].shape[0]
-    return "common" if qw["scales"].shape[0] == K // group_size else "tile"
+    K = qw["codes"].shape[-2]
+    return "common" if qw["scales"].shape[-2] == K // group_size else "tile"
+
+
+def _lookup(codebook: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``codebook[idx]`` for each stacked matrix: idx (..., K, N) codes,
+    codebook (16,) or one per matrix, (..., 16)."""
+    idx = idx.int()
+    if codebook.ndim == 1:
+        return codebook[idx]
+    lead = idx.shape[:-2]
+    n = codebook.shape[-1]
+    off = torch.arange(0, math.prod(lead) * n, n, dtype=torch.int32,
+                       device=idx.device).reshape(*lead, 1, 1)
+    return codebook.reshape(-1)[idx + off]
 
 
 def dequantize(qw: dict, *, dtype=torch.float32,
                group_size: int = 32) -> torch.Tensor:
     """Reference dequantization: codebook lookup times broadcast scale, in
-    f32, then cast to ``dtype``."""
-    idx = unpack_int4(qw["codes"]).long()
-    K, N = idx.shape
-    vals = qw["codebook"][idx]
+    f32, then cast to ``dtype``.  Leading dims of the leaf (stacked
+    experts) are free, each matrix with its own codebook row."""
+    vals = _lookup(qw["codebook"], unpack_int4(qw["codes"]))
+    *lead, K, N = vals.shape
     s = qw["scales"].float()
     g = group_size
     if infer_scheme(qw, group_size) == "common":
-        w = (vals.reshape(K // g, g, N) * s[:, None, :]).reshape(K, N)
+        w = vals.reshape(*lead, K // g, g, N) * s[..., :, None, :]
     else:
         gr, gc = 2, g // 2
-        w = (vals.reshape(K // gr, gr, N // gc, gc)
-             * s[:, None, :, None]).reshape(K, N)
-    return w.to(dtype)
+        w = (vals.reshape(*lead, K // gr, gr, N // gc, gc)
+             * s[..., :, None, :, None])
+    return w.reshape(*lead, K, N).to(dtype)
 
 
 def quantize_q8(w: torch.Tensor, *, group_size: int = 32,
@@ -125,8 +141,11 @@ def quantize_q8(w: torch.Tensor, *, group_size: int = 32,
 
 def dequantize_q8(qw: dict, *, dtype=torch.float32,
                   group_size: int = 32) -> torch.Tensor:
+    """Q8_0 dequantization in f32, then cast to ``dtype``; leading dims of
+    the leaf (stacked experts) are free."""
     codes = qw["codes"]
-    K, N = codes.shape
+    *lead, K, N = codes.shape
     g = group_size
-    w = codes.float().reshape(K // g, g, N) * qw["scales"].float()[:, None, :]
-    return w.reshape(K, N).to(dtype)
+    w = (codes.float().reshape(*lead, K // g, g, N)
+         * qw["scales"].float()[..., :, None, :])
+    return w.reshape(*lead, K, N).to(dtype)

@@ -157,10 +157,13 @@ class DecodeEngine:
 
     # -- prefill ------------------------------------------------------------
     def prefill(self, tokens: torch.Tensor,
-                lengths: Optional[torch.Tensor] = None, *,
+                lengths: Optional[torch.Tensor] = None,
+                embeddings: Optional[torch.Tensor] = None, *,
                 cached_table=None, cached_lens=None) -> GenState:
         """tokens: (B, S) right-padded prompts; lengths: (B,) true lengths.
         Allocates the prompts' blocks (host) and scatters their KV in.
+        ``embeddings``: a (B, P, d) modality-stub prefix (``patch_stub``
+        configs) replacing the first P positions' token embeddings.
 
         Partial prefill: ``cached_table`` (B, Wc) block ids covering each
         row's cached prompt prefix plus ``cached_lens`` (B,) cached
@@ -183,7 +186,8 @@ class DecodeEngine:
         tr, prof = self.tracer, self.profiler
         t0 = tr.now() if tr is not None else 0.0
         pt0 = prof.phase_begin("prefill") if prof is not None else 0.0
-        st = self._prefill(tokens, lengths, cached_table, cached_lens)
+        st = self._prefill(tokens, lengths, embeddings, cached_table,
+                           cached_lens)
         if prof is not None:
             prof.phase_end("prefill", pt0, outputs=st.pending_logits)
         if tr is not None:
@@ -191,9 +195,12 @@ class DecodeEngine:
                     cached=cached_table is not None)
         return st
 
-    def _prefill(self, tokens, lengths, cached_table, cached_lens):
+    def _prefill(self, tokens, lengths, embeddings, cached_table,
+                 cached_lens):
         B, S = tokens.shape
         tokens = tokens.to(self.device)
+        if embeddings is not None:
+            embeddings = embeddings.to(self.device)
         if lengths is None:
             lengths = torch.full((B,), S, dtype=torch.int32)
         lens_h = np.asarray(lengths.cpu(), np.int64)
@@ -201,6 +208,10 @@ class DecodeEngine:
             if not self.paged:
                 raise ValueError("cached-prefix prefill requires a paged "
                                  "engine (DecodeEngine(paged=True))")
+            if embeddings is not None:
+                raise NotImplementedError(
+                    "cached-prefix prefill does not support modality-stub "
+                    "embeddings")
             return self._prefill_with_prefix(tokens, lens_h, cached_table,
                                              cached_lens)
         if not self.paged:
@@ -208,7 +219,8 @@ class DecodeEngine:
             cache = self.model.init_cache(self.cfg, B, self.max_len,
                                           device=self.device)
             logits = self.model.prefill(self.params, tokens, self.cfg,
-                                        lengths=lengths, cache=cache)
+                                        lengths=lengths, cache=cache,
+                                        embeddings=embeddings)
             return self._prefilled_state(None, None, lengths, logits,
                                          cache=cache)
         bs = self.pool.block_size
@@ -223,7 +235,8 @@ class DecodeEngine:
         lengths = self._vec(lens_h, torch.int32)
         logits = self.model.prefill(self.params, tokens, self.cfg,
                                     lengths=lengths,
-                                    paged=self._paged_handle(table))
+                                    paged=self._paged_handle(table),
+                                    embeddings=embeddings)
         return self._prefilled_state(table, n_blocks, lengths, logits)
 
     def _paged_handle(self, table: np.ndarray) -> dict:
@@ -1437,8 +1450,12 @@ class ContinuousScheduler:
         nothing).  The JAX scheduler pads to ``prompt_len`` so jit sees
         one shape; eager execution gains nothing from that, and padding a
         short hit suffix to the full prompt would spend the device time
-        the cache saves on padding rows."""
-        toks = torch.full((len(suffixes), max(map(len, suffixes))),
+        the cache saves on padding rows.  An MoE model is the exception:
+        its padding tokens route and take expert capacity like the
+        others, so it pads to ``prompt_len`` as the JAX scheduler does."""
+        width = (self.prompt_len if self.engine.cfg.moe
+                 else max(map(len, suffixes)))
+        toks = torch.full((len(suffixes), width),
                           self.engine.pad_id, dtype=torch.int32)
         for i, s in enumerate(suffixes):
             toks[i, :len(s)] = torch.tensor(s, dtype=torch.int32)
