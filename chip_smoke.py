@@ -28,7 +28,10 @@ Phases, one JSON line each:
    teacher-forced decode and partial-prefill (cached prefix) logits must
    agree; then a small MoE model (its routing ids equal on both devices
    at every call) and a ``patch_stub`` model (prefill with a patch
-   prefix) the same way;
+   prefix) the same way; and a small W4A16 zamba2-style hybrid on dense
+   rows (prefill, teacher-forced decode, then its conv / ssm states and
+   shared-block KV), f32 on both sides and the GPU's bf16 against the
+   CPU's f32;
 5. ``serve``: ``repro_torch.launch.serve`` at the full width of
    qwen2.5-1.5b (28 layers, random seeded weights, W4A16), once per path:
    continuous Best-of-8 over 4 tasks on Q8, Q4 and bf16 KV, each in exact
@@ -48,9 +51,18 @@ Phases, one JSON line each:
    1024, top-8, W4A16 with Q4 expert gate/up and Q8 expert down),
    continuous Best-of-8 over 2 tasks on Q8 KV (``moe/q8``), on Q4 KV with
    the LUT softmax (``moe/q4lut``) and on Q8 KV with the prefix cache over
-   a 3-shot header (``moe/prefix``).  Launch counts follow each served
-   model (``gemm_layout``).  Every request must complete, the pool must
-   drain to the cache's pinned blocks, and each run must launch its
+   a 3-shot header (``moe/prefix``); then, on dense cache rows (no
+   ``--paged``), Best-of-8 over 2 tasks: zamba2-1.2b at its published
+   width (38 Mamba2 layers, d_model 2048, d_state 64; the shared
+   attention + SwiGLU block after every 6th layer), W4A16, through the
+   scheduler (``ssm/zamba2``) and the direct path
+   (``ssm/zamba2-direct``), mamba2-130m in bf16 (``ssm/mamba2``: no
+   W4A16 form, so no kernel) and qwen2.5-1.5b W4A16 (``dense/bf16``: K3
+   only).  Launch counts follow each served model (``gemm_layout``:
+   per forward 168 K3 for qwen2.5-1.5b, 64 for olmoe-1b-7b, 112 for
+   zamba2-1.2b; paged attention once per layer on the pool, never on
+   dense rows).  Every request must complete, the pool (where there is
+   one) must drain to the cache's pinned blocks, and each run must launch its
    kernels exactly as often as its decode steps, prefills and
    speculative verifies require (counters reset just before each run,
    read just after; a verify launches K3 at M = slots x W and K4 twice).  Both routes
@@ -62,17 +74,18 @@ Phases, one JSON line each:
    speculative round, ended by a synchronize.  The memory peak is reset once the engine is
    built: ``peak_device_bytes`` is the serving peak,
    ``load_peak_device_bytes`` the weights' init, beside the pool's own
-   ``peak_kv_bytes``;
+   ``peak_kv_bytes`` (dense paths: ``dense_cache_bytes``, the rows'
+   cache from its shapes);
 6. ``observe``: the serve again through ``--trace`` and ``--profile``
    (the request tracer, the kernel profiler with its numerics canary at
    rate 0.25), Best-of-8 over 2 tasks: Q8/exact off, on, off, on, then on
    with the canary off; Q4/LUT and q8/prefix on; spec/self traced;
-   olmoe-1b-7b on Q8/exact on.  Each
+   olmoe-1b-7b on Q8/exact on; zamba2-1.2b on dense rows on.  Each
    trace and report must pass the port's validators, each op's hooked
    calls must equal its kernel's launches outside the canary (28 paged
-   attention and 168 K3 per decode step), the canary must launch no paged
-   attention, and spec/self must record one ``spec_verify`` span per
-   round.  One ``observe`` line per run (span totals and p50 by name,
+   attention and 168 K3 per decode step on qwen2.5-1.5b), the canary
+   must launch no paged attention and, on dense rows, never run, and
+   spec/self must record one ``spec_verify`` span per round.  One ``observe`` line per run (span totals and p50 by name,
    admission steps, TTFT / inter-token / queue-wait percentiles,
    ``kernel_time_share``, ``roofline_efficiency_p50``, per-op calls, bound
    and attributed wall, the canary's drift) and an ``observe_cost`` line
@@ -93,9 +106,10 @@ Phases, one JSON line each:
    ``dequant_matmul_ref``; each projection shape timed beside an empty
    kernel on its grid and on one block (the launch floor);
 9. ``profile``: where a decode step's time goes, under ``torch.profiler``,
-   with K3's and K1/K2's device ms per decode step, for qwen2.5-1.5b and
-   for olmoe-1b-7b (with its experts' dequant and products timed by CUDA
-   events at the step's shapes and set against the step).
+   with K3's and K1/K2's device ms per decode step, for qwen2.5-1.5b, for
+   olmoe-1b-7b (with its experts' dequant and products timed by CUDA
+   events at the step's shapes and set against the step) and for
+   zamba2-1.2b on dense rows.
 
 Phases 7 and 8 reset the counters, drive their entry point once per case,
 and read the counts before any comparison or timing launches.  Then a
@@ -136,19 +150,33 @@ MOE_ARCH = "olmoe-1b-7b"
 
 
 def gemm_layout(cfg) -> dict:
-    """{(K, N): launches per layer} of K3 in one forward of ``cfg`` under
-    ``DEFAULT_POLICY``: the Q4 attention projections, and the Q4 FFN
-    gate and up of a dense layer (an MoE layer's experts are dequantized
-    whole, not K3; every FFN down is Q8, not K3)."""
+    """{(K, N): launches} of K3 in one forward of ``cfg`` under
+    ``DEFAULT_POLICY``, once its weights are quantized: per transformer
+    layer the Q4 attention projections and the Q4 FFN gate and up of a
+    dense layer (an MoE layer's experts are dequantized whole, not K3;
+    every FFN down is Q8, not K3); per Mamba2 layer the Q4 ``in_proj``
+    and ``out_proj``, and per application of the zamba2 hybrid's shared
+    block (after every ``hybrid_attn_every``-th layer) its attention
+    projections, gate and up."""
     d, hd = cfg.d_model, cfg.resolved_head_dim()
+    attn = [(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
+            (d, cfg.n_kv_heads * hd), (cfg.n_heads * hd, d)]
+    if cfg.family == "transformer":
+        blocks = [(attn + ([] if cfg.moe else [(d, cfg.d_ff)] * 2),
+                   cfg.n_layers)]
+    else:
+        s = cfg.ssm
+        di = s.d_inner(d)
+        n_in = 2 * di + 2 * s.ngroups * s.d_state + s.n_heads(d)
+        apps = (cfg.n_layers // cfg.hybrid_attn_every
+                if cfg.family == "hybrid" and cfg.hybrid_attn_every else 0)
+        blocks = [([(d, n_in), (di, d)], cfg.n_layers),
+                  (attn + [(d, cfg.d_ff)] * 2, apps)]
     out: dict = {}
-    shapes = [(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
-              (d, cfg.n_kv_heads * hd), (cfg.n_heads * hd, d)]
-    if not cfg.moe:
-        shapes += [(d, cfg.d_ff)] * 2
-    for kn in shapes:
-        out[kn] = out.get(kn, 0) + 1
-    return out
+    for shapes, times in blocks:
+        for kn in shapes:
+            out[kn] = out.get(kn, 0) + times
+    return {kn: n for kn, n in out.items() if n}
 
 
 def emit(phase: str, **kw) -> None:
@@ -1077,6 +1105,89 @@ def reference_family_check(dev: str = "cuda") -> None:
         MO.route = orig_route
 
 
+def reference_ssm_check(dev: str = "cuda") -> None:
+    """The Mamba2 / zamba2 family, small, W4A16, GPU against CPU from the
+    same weights and tokens: a hybrid of 4 Mamba2 layers (d_model 64,
+    d_state 24, 16 heads of 8) with the shared attention + SwiGLU block
+    (4 heads of 16, d_ff 128) after layers 1 and 3, whose every
+    projection tiles into Q4 groups (in_proj 64 -> 2 x 128 + 2 x 24 + 16
+    = 320).  Ragged prompts (12, 5, 9 in a width of 12) prefilled into
+    dense rows, then 10 teacher-forced decode steps: each call's logits,
+    and after the last the conv and ssm states and the shared block's
+    K/V, agree.  f32 on both sides (K3's CUDA-core plan); then the GPU in
+    bf16 (K3's tensor-core plans, at M 36 and M 3) against the CPU's f32.
+    K3 launches 20 times per call on the GPU (4 x (in_proj, out_proj) + 2
+    x (q, k, v, o, gate, up))."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import ModelConfig, SSMConfig
+    from repro_torch.kernels import lut_dequant_gemm as G
+    from repro_torch.models import mamba2 as MB
+    from repro_torch.quant.qlinear import cast_params, quantize_model_params
+
+    cfg = ModelConfig(name="reference-hybrid", family="hybrid", n_layers=4,
+                      d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
+                      d_ff=128, vocab_size=320, hybrid_attn_every=2,
+                      dtype="float32",
+                      ssm=SSMConfig(d_state=24, head_dim=8, expand=2,
+                                    conv_width=4, chunk_size=8))
+    per_call = sum(gemm_layout(cfg).values())
+    params_cpu = quantize_model_params(MB.init_params(cfg, seed=5,
+                                                      device="cpu"))
+    rng = np.random.default_rng(2)
+    B, S, steps = 3, 12, 10
+    lens = torch.tensor([12, 5, 9], dtype=torch.int32)
+    toks = torch.from_numpy(rng.integers(3, 300, (B, S)).astype(np.int32))
+    forced = torch.from_numpy(rng.integers(3, 300, (B, steps)).astype(
+        np.int32))
+
+    def run(c, params, d):
+        params = cast_params(params, getattr(torch, c.dtype))
+        cache = MB.init_cache(c, B, 32, device=d)
+        before = G.lut_dequant_gemm.launches
+        out = [MB.prefill(params, toks.to(d), c, lengths=lens.to(d),
+                          cache=cache)]
+        clen = lens.to(d)
+        for t in range(steps):
+            clen = clen + 1
+            out.append(MB.decode_step(params, forced[:, t:t + 1].to(d),
+                                      cache, clen, c))
+        launched = G.lut_dequant_gemm.launches - before
+        if d != "cpu" and launched != per_call * (1 + steps):
+            raise AssertionError(f"reference/ssm: {launched} K3 launches, "
+                                 f"expected {per_call * (1 + steps)}")
+        return torch.stack(out).cpu(), {k: v.float().cpu()
+                                        for k, v in cache.items()}
+
+    want, want_cache = run(cfg, params_cpu, "cpu")
+    # f32 on both sides, summed in other orders: tolerances as
+    # reference_check's fp case.  bf16 keeps 8 bits (2^-9 relative per
+    # rounding), compounded over 4 blocks, 2 shared blocks and a 10-step
+    # recurrence: 10% of each tensor's largest magnitude (bf16 against
+    # f32 on the CPU with this model: 1.2-3.7%)
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        got, got_cache = run(c, to_device(params_cpu, dev), dev)
+        errs, ranges = {}, {}
+        for name, g, w in [("logits", got, want)] + [
+                (k, got_cache[k], want_cache[k]) for k in want_cache]:
+            ranges[name] = float(w.abs().max())
+            tol = 1e-4 if dtype == "float32" else 0.1 * ranges[name]
+            errs[name] = check_close(f"reference/ssm/{dtype}/{name}", g, w,
+                                     tol, 1e-4 if dtype == "float32" else 0)
+        emit("reference", model="hybrid", dtype=dtype, kv="dense",
+             path="prefill_decode", shape=list(got.shape),
+             max_abs_err=errs, max_abs_reference=ranges,
+             k3_launches_per_call=per_call,
+             plans={f"M{m}": G.plan(m, 64, 320, getattr(torch, dtype)).regime
+                    for m in (B, B * S)},
+             atol=("1e-4 (rtol 1e-4)" if dtype == "float32"
+                   else "0.1 x max |reference|"))
+
+
 # ---------------------------------------------------------------------------
 # the main path: full-width serving
 # ---------------------------------------------------------------------------
@@ -1137,6 +1248,29 @@ SERVE_PATHS["moe/q4lut"] = ("q4", "lut", MOE_ARGS + ["--kv-quant", "q4"],
                             2, 8)
 SERVE_PATHS["moe/prefix"] = ("q8", "exact", MOE_ARGS + [
     "--kv-quant", "q8", "--prefix-cache", "--fewshot", "3"], 2, 8)
+# dense rows (no --paged; "dense" below), Best-of-8 over 2 tasks x 48
+# tokens: zamba2-1.2b at its published width (38 Mamba2 layers, d_model
+# 2048, d_state 64, head_dim 64; the shared attention + SwiGLU block, 32
+# heads of 64 and d_ff 8192, after every 6th layer; vocab 32000), W4A16,
+# through the scheduler (ssm/zamba2) and the direct path
+# (ssm/zamba2-direct); mamba2-130m (24 layers, d_model 768, d_state 128)
+# in bf16, which has no W4A16 form (its in_proj does not tile), so no
+# kernel runs (ssm/mamba2); and qwen2.5-1.5b W4A16 through the scheduler
+# over dense rows (dense/bf16: K3 only, no K1/K2)
+SSM_ARCH = "zamba2-1.2b"
+SSM_ARGS = ["--arch", SSM_ARCH, "--quantize", "--method", "best_of_n",
+            "--budget", "8", "--tasks", "2"]
+DENSE_PATHS = ("ssm/zamba2", "ssm/zamba2-direct", "ssm/mamba2",
+               "dense/bf16")
+SERVE_PATHS["ssm/zamba2"] = ("dense", "exact", SSM_ARGS + ["--continuous"],
+                             2, 8)
+SERVE_PATHS["ssm/zamba2-direct"] = ("dense", "exact", SSM_ARGS, 2, 8)
+SERVE_PATHS["ssm/mamba2"] = ("dense", "exact", [
+    "--arch", "mamba2-130m", "--method", "best_of_n", "--budget", "8",
+    "--tasks", "2", "--continuous"], 2, 8)
+SERVE_PATHS["dense/bf16"] = ("dense", "exact", [
+    "--arch", "qwen2.5-1.5b", "--quantize", "--method", "best_of_n",
+    "--budget", "8", "--tasks", "2", "--continuous"], 2, 8)
 # the largest logit gap, in the spec/base run, between the token it chose
 # and the token a speculative path chose at a row's first divergence: a
 # near-tie flipped by the verify's other arithmetic (chunked attention
@@ -1204,6 +1338,15 @@ def spec_parity(spec: dict, eos_id: int) -> None:
         if bad:
             raise AssertionError(f"{path}: diverges from spec/base beyond a "
                                  f"near-tie (gap > {SPEC_GAP}): {bad}")
+
+
+def dense_cache_bytes(engine, rows: int) -> int:
+    """Bytes of ``rows`` dense cache rows of ``engine``'s model (a
+    transformer's KV slots; a Mamba2 model's conv and f32 SSM states and
+    the hybrid's shared-block KV), from the shapes alone."""
+    cache = engine.model.init_cache(engine.cfg, rows, engine.max_len,
+                                    device="meta")
+    return sum(t.numel() * t.element_size() for t in cache.values())
 
 
 def serve_runs() -> dict:
@@ -1373,7 +1516,7 @@ def serve_runs() -> dict:
         pool = built["engine"].pool
         pinned = s.get("prefix_cache", {}).get("cached_blocks", 0) if s \
             else 0
-        if pool.blocks_in_use != pinned:
+        if pool is not None and pool.blocks_in_use != pinned:
             raise AssertionError(f"serve {path}: pool holds "
                                  f"{pool.blocks_in_use} blocks after drain, "
                                  f"expected the {pinned} cache-pinned")
@@ -1415,27 +1558,34 @@ def serve_runs() -> dict:
                 f"serve {path}: {len(draft_steps)} draft steps on the "
                 f"target (expected {want_draft}), {drafter_steps[0]} on "
                 f"the drafter")
-        # one attention launch per layer per target decode step (plain or
-        # draft); the model's Q4 projections per layer at each (K, N) per
-        # target decode step (M = the step's rows: the slots, or the
-        # direct path's batch), per prefill (M = batch x padded width) and
-        # per verify (M = slots x W); two KV dequant launches (K and V)
-        # per partial prefill and per verify, a verify's at R = layers x
-        # slots x prefix width x block size
+        # on the paged pool one attention launch per layer per target
+        # decode step (plain or draft), none on dense rows (the plain
+        # layers.decode_attention, as the JAX package's XLA there); the
+        # model's Q4 projections (gemm_layout, none unless --quantize) at
+        # each (K, N) per target decode step (M = the step's rows: the
+        # slots, or the direct path's batch), per prefill (M = batch x
+        # padded width) and per verify (M = slots x W); two KV dequant
+        # launches (K and V) per partial prefill and per verify, a
+        # verify's at R = layers x slots x prefix width x block size
         cfg = built["engine"].cfg
-        n_layers, bs = cfg.n_layers, built["engine"].pool.block_size
+        n_layers = cfg.n_layers
+        bs = pool.block_size if pool is not None else 0
         attn = "paged_attention" if kv_quant == "none" else \
             "quant_paged_attention"
-        want = {attn: n_layers * (len(steps) + len(draft_steps)),
+        want = {"paged_attention": 0, "quant_paged_attention": 0,
                 "lut_dequant_kv": 2 * (partial + len(verifies)),
                 # K5 and K6 are off the served path, as in the JAX package
                 "lut_softmax_attention": 0, "tile_quantize": 0}
-        for (k, n), per_layer in gemm_layout(cfg).items():
+        if pool is not None:
+            want[attn] = n_layers * (len(steps) + len(draft_steps))
+        layout = gemm_layout(cfg) if "--quantize" in args else {}
+        for (k, n), per_fwd in layout.items():
             for m in ([rows_ for rows_, _ in steps] + draft_steps
                       + [b * width for b, width, _ in prefills]
                       + [b * w for b, w, _ in verifies]):
-                want[(m, k, n)] = want.get((m, k, n), 0) + \
-                    per_layer * n_layers
+                want[(m, k, n)] = want.get((m, k, n), 0) + per_fwd
+        want["lut_dequant_gemm"] = sum(n for key, n in want.items()
+                                       if isinstance(key, tuple))
         want_kv = {}
         for b, _, pw in verifies:
             key = (kv_quant, n_layers * b * pw * bs)
@@ -1480,8 +1630,11 @@ def serve_runs() -> dict:
              serve_wall_s=wall_s, main_wall_s=t1 - t0,
              peak_device_bytes=peak,
              load_peak_device_bytes=built["load_peak"],
-             peak_kv_bytes=pool.stats()["peak_bytes_in_use"],
-             pool_reserved_bytes=pool.stats()["pool_reserved_bytes"],
+             **(dict(peak_kv_bytes=pool.stats()["peak_bytes_in_use"],
+                     pool_reserved_bytes=pool.stats()["pool_reserved_bytes"])
+                if pool is not None else dict(
+                    dense_cache_bytes=dense_cache_bytes(
+                        built["engine"], max(r for r, _ in steps)))),
              launches=counts,
              gemm_launches={"x".join(map(str, k)): v
                             for k, v in sorted(shapes.items())},
@@ -1489,6 +1642,8 @@ def serve_runs() -> dict:
                                   for (m, r), v in sorted(kv_shapes.items())},
              attn_launches_per_decode_step=counts[attn] / max(
                  1, len(steps) + len(draft_steps)),
+             # K3 per decode step, prefill and verify (checked above)
+             k3_launches_per_forward=sum(layout.values()),
              **({} if not rounds else dict(
                  spec_rounds=len(rounds), plain_steps=len(steps),
                  draft_steps=len(draft_steps),
@@ -1544,6 +1699,7 @@ OBSERVE_RUNS = (
     ("spec/self/trace", "q8", "exact", ["--spec-k", "4", "--self-draft"],
      True, None),
     ("moe/q8/on", "q8", "exact", ["--arch", MOE_ARCH], True, CANARY_RATE),
+    ("ssm/zamba2/on", "dense", "exact", [], True, CANARY_RATE),
 )
 SPAN_KEYS = ("admit", "prefill", "plan", "decode", "step", "prm",
              "spec_verify")
@@ -1599,11 +1755,12 @@ def observe_runs() -> list:
     report, written under ``build/observe/``, must pass the port's
     validators; a profiled run's per-op calls must equal the launch
     counters less the canary's (one paged attention per layer and decode
-    step, the model's Q4 projections (``gemm_layout``) per layer and
-    decode step, prefill and verify, 2 K4 per partial prefill), the
-    canary (where on) must launch those Q4 projections and no paged
-    attention per sample; a
-    speculative run must record one ``spec_verify`` span per round.
+    step on the pool, none on dense rows, the model's Q4 projections
+    (``gemm_layout``) per decode step, prefill and verify, 2 K4 per
+    partial prefill), the canary (where on: paged runs of a nonzero rate)
+    must launch those Q4 projections and no paged attention per sample,
+    and a dense run none; a speculative run must record one
+    ``spec_verify`` span per round.
     Decode tok/s is the scheduler's (decode tokens over its step walls)
     and the wall's (over the time from the engine's build to the serve's
     end).  Prints one ``observe`` line per run and an ``observe_cost``
@@ -1625,7 +1782,9 @@ def observe_runs() -> list:
     for i, (name, kv, impl, extra, traced, canary_rate) in enumerate(
             OBSERVE_RUNS):
         profiled = canary_rate is not None
-        args = OBSERVE_ARGS + ["--kv-quant", kv] + extra
+        dense = kv == "dense"
+        args = (SSM_ARGS + ["--continuous"] if dense
+                else OBSERVE_ARGS + ["--kv-quant", kv]) + extra
         tag = f"{i}_{name.replace('/', '_')}"
         trace_path, report_path = (out_dir / f"{tag}.trace.json",
                                    out_dir / f"{tag}.profile.json")
@@ -1671,7 +1830,10 @@ def observe_runs() -> list:
         attn = "quant_paged_attention"
         cfg = built["cfg"]
         n_layers = cfg.n_layers
-        k3_fwd = n_layers * sum(gemm_layout(cfg).values())
+        # dense rows run no paged attention (and, the canary's replica
+        # being a paged one, no canary)
+        attn_layers = 0 if dense else n_layers
+        k3_fwd = sum(gemm_layout(cfg).values())
         line = {"path": name, "arch": cfg.name, "kv_quant": kv,
                 "impl": impl,
                 "tracer": traced, "profiler": profiled,
@@ -1727,7 +1889,7 @@ def observe_runs() -> list:
                       for p in ("decode", "prefill", "spec_verify"))
             want = {
                 "paged_flash_decode": (counts[attn] - in_canary[attn],
-                                       n_layers * ph["decode"]["calls"]),
+                                       attn_layers * ph["decode"]["calls"]),
                 "lut_dequant_matmul": (
                     counts["lut_dequant_gemm"]
                     - in_canary["lut_dequant_gemm"], k3_fwd * fwd),
@@ -1743,7 +1905,8 @@ def observe_runs() -> list:
                         f"{launched} launches outside the canary, "
                         f"{per_phase} by phase")
             n_can = s["canary_samples"]
-            if n_can != len(canary) or (n_can < 1) != (canary_rate == 0) or \
+            canary_on = canary_rate != 0 and not dense
+            if n_can != len(canary) or (n_can >= 1) != canary_on or \
                     in_canary[attn] != 0 or \
                     in_canary["lut_dequant_gemm"] != k3_fwd * n_can:
                 raise AssertionError(f"observe {name}: canary {n_can} "
@@ -1781,9 +1944,11 @@ def observe_runs() -> list:
     return lines
 
 
-def profile_decode(base_args: list = SERVE_ARGS) -> None:
+def profile_decode(base_args: list = SERVE_ARGS,
+                   kv: tuple = ("--kv-quant", "q8")) -> None:
     """Where a decode step's time goes at full width: one Best-of-8 task
-    (Q8 KV, exact softmax) of ``base_args``'s model served under
+    of ``base_args``'s model (Q8 KV and exact softmax on the pool, or
+    ``kv=()`` on dense rows without ``--paged``) served under
     ``torch.profiler``; device busy share = summed kernel time over the
     serve's wall time.  For an MoE model, the experts' share: each
     layer's expert dequant (``moe.expert_weights``: Q4 gate/up and Q8
@@ -1799,8 +1964,8 @@ def profile_decode(base_args: list = SERVE_ARGS) -> None:
     from repro_torch.data import tasks as T
     from repro_torch.launch import serve
 
-    args = serve.parse_args(base_args + ["--kv-quant", "q8", "--tasks", "1",
-                                         "--max-tokens", "16"])
+    args = serve.parse_args(base_args + list(kv) + ["--tasks", "1",
+                                                    "--max-tokens", "16"])
     engine, tok = serve.build_engine(args)
     tasks = T.gen_dataset(123, 1)
     spec = TTSSpec("best_of_n", args.budget, args.max_tokens)
@@ -1838,7 +2003,9 @@ def profile_decode(base_args: list = SERVE_ARGS) -> None:
     if cfg.moe:
         extra = moe_step_costs(engine, device_ms / steps,
                                wall * 1e3 / steps)
-    emit("profile", arch=cfg.name, kv_quant="q8", impl="exact", steps=steps,
+    emit("profile", arch=cfg.name,
+         kv="paged" if engine.paged else "dense", kv_quant=args.kv_quant,
+         impl="exact", steps=steps,
          k3_device_ms_per_step=k3_ms, k3_kernel_launches=k3_n,
          k2_device_ms_per_step=k2_ms, k2_kernel_launches=k2_n,
          wall_ms_per_step=wall * 1e3 / steps,
@@ -1944,6 +2111,7 @@ def main() -> int:
     check_paged_kernels(results)
     reference_check()
     reference_family_check()
+    reference_ssm_check()
     runs, spec = serve_runs()
     spec_parity(spec, spec.pop("eos_id"))
     observe_runs()
@@ -1951,12 +2119,15 @@ def main() -> int:
     # the north-star path (8 decode slots, a Best-of-N group's padded
     # prompt), on the prefix paths (each prefill's batch x its longest
     # suffix), on the TTS paths (the direct path's 64-token prompt width),
-    # on the speculative paths (the verify's 8 slots x W) and on the
-    # olmoe-1b-7b paths (its (2048, 2048) projections); K4's R on the
-    # prefix paths and the verify's prefix gathers
+    # on the speculative paths (the verify's 8 slots x W), on the
+    # olmoe-1b-7b paths (its (2048, 2048) projections) and on the dense
+    # paths (zamba2-1.2b's in_proj (2048, 8384), out_proj (4096, 2048)
+    # and shared block; qwen2.5-1.5b's over 2 tasks); K4's R on the prefix
+    # paths and the verify's prefix gathers
     gemm_mkn, kv_r = {}, {}
     for path in ("q8/exact", "q8/prefix", "q4/prefix", "sc/direct",
-                 "beam/sched", "beam/direct") + SPEC_PATHS + MOE_PATHS:
+                 "beam/sched", "beam/direct") + SPEC_PATHS + MOE_PATHS + \
+            DENSE_PATHS:
         for mkn in runs[path]["shapes"]:
             gemm_mkn.setdefault(mkn, path)
         for mode, r in runs[path]["kv_shapes"]:
@@ -1967,6 +2138,7 @@ def main() -> int:
               "quantize": quantize_phase(results)}
     profile_decode()
     profile_decode(MOE_ARGS)
+    profile_decode(SSM_ARGS, kv=())
 
     kernels = kernel_rows(results, runs, phases)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,8 +7,10 @@ port's per-layer list (an MoE layer's ``moe/router/w`` and its
 ``moe/experts/{gate,up,down}`` stacks of shape (E, ...) included);
 quantized leaves ({"codes", "scales"[, "codebook"]}, an expert stack's
 with one codebook row per expert) are copied byte for byte, and so are
-top-level leaves such as ``patch_proj``; ``ml_dtypes`` bfloat16 arrays
-travel through a uint16 view.
+top-level leaves such as ``patch_proj`` and the zamba2 hybrid's
+``shared_attn`` (one block, not stacked); ``ml_dtypes`` bfloat16 arrays
+travel through a uint16 view.  The layer count is the leading dim of the
+stacked leaves, so a transformer layer and a Mamba2 layer carry alike.
 """
 from __future__ import annotations
 
@@ -34,6 +36,12 @@ def _convert(node, device):
     return to_tensor(node, device)
 
 
+def _first_leaf(node):
+    while isinstance(node, dict):
+        node = next(iter(node.values()))
+    return np.asarray(node)
+
+
 def _split_layers(stacked: dict, n_layers: int) -> list:
     def take(node, i):
         if isinstance(node, dict):
@@ -44,14 +52,13 @@ def _split_layers(stacked: dict, n_layers: int) -> list:
 
 
 def params_from_jax(tree: dict, device=None) -> dict:
-    """The port's parameter tree for a host-fetched JAX transformer tree,
-    on ``device`` (CUDA unless asked otherwise)."""
+    """The port's parameter tree for a host-fetched JAX tree (any family
+    the port serves), on ``device`` (CUDA unless asked otherwise)."""
     dev = resolve_device(device)
     out = {}
     for key, node in tree.items():
         if key == "layers":
-            first = node["attn_norm"]["scale"]
-            layers = _split_layers(node, np.asarray(first).shape[0])
+            layers = _split_layers(node, _first_leaf(node).shape[0])
             out[key] = [_convert(lp, dev) for lp in layers]
         else:
             out[key] = _convert(node, dev)

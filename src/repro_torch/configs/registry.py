@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's
-entry points.  Lists only the architectures the port serves: the
-transformer family of the JAX package's registry (dense, GQA, QKV bias,
-sliding window, local:global, MoE, and the ``patch_stub`` modality
-frontend)."""
+entry points.  Lists the architectures the port serves: the JAX
+package's registry but for ``whisper-base`` (the encoder-decoder family
+comes with a later slice), i.e. the transformer family (dense, GQA, QKV
+bias, sliding window, local:global, MoE, the ``patch_stub`` modality
+frontend), Mamba2 (mamba2-130m) and the zamba2 hybrid (zamba2-1.2b)."""
 from __future__ import annotations
 
 import importlib
@@ -16,8 +17,10 @@ _ARCH_MODULES = {
     "qwen2.5-14b": "qwen2_5_14b",
     "command-r-35b": "command_r_35b",
     "internvl2-1b": "internvl2_1b",
+    "mamba2-130m": "mamba2_130m",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "mixtral-8x7b": "mixtral_8x7b",
+    "zamba2-1.2b": "zamba2_1_2b",
     # the paper's own models
     "qwen2.5-1.5b": "qwen2_5_1_5b",
     "llama3.2-1b": "llama3_2_1b",

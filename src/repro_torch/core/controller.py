@@ -17,9 +17,9 @@ Serving rows carry ``SchedulerMetrics.summary()`` under ``"serving"``
 ``beam_prunes``, ``prm_batches``, ``prm_candidates`` and
 ``prm_candidates_per_batch``, and the speculative counters
 ``spec_rounds``, ``draft_tokens``, ``spec_acceptance_rate`` and
-``accepted_tokens_per_step``) plus the paged pool's accounting under
-``"serving"]["kv"]`` and, with a prefix cache, the cache's interval stats
-under ``"serving"]["prefix_cache"]``.  The summary's latency percentiles
+``accepted_tokens_per_step``) plus, on a paged engine, the pool's
+accounting under ``"serving"]["kv"]`` and, with a prefix cache, the
+cache's interval stats under ``"serving"]["prefix_cache"]``.  The summary's latency percentiles
 (``ttft_*``, ``itl_*``, ``queue_wait_*``) need a ``tracer=``, its
 profiler keys (``kernel_time_share``, ``roofline_efficiency_p50``,
 ``canary_*``) a ``profiler=``; without them they are 0.
@@ -82,15 +82,17 @@ def run_method(engine, tok, task, spec: TTSSpec,
 
 def _attach_serving_stats(serving: dict, engine, n_slots: int,
                           cow_base: int, prefix_cache, cache_base) -> None:
-    """Attach the pool's and the prefix cache's interval stats to a
-    serving row.  Their counters are lifetime values on an engine and a
-    cache a whole sweep shares, so they are rebased to this row's
-    interval (cached_blocks/bytes stay gauges)."""
-    kv = engine.pool.stats()
-    kv["cow_copies"] -= cow_base
-    kv["dense_bytes"] = dense_kv_bytes(engine.cfg, n_slots, engine.max_len)
-    kv["hbm_saved_bytes"] = kv["dense_bytes"] - kv["peak_bytes_in_use"]
-    serving["kv"] = kv
+    """Attach the pool's (paged engines) and the prefix cache's interval
+    stats to a serving row.  Their counters are lifetime values on an
+    engine and a cache a whole sweep shares, so they are rebased to this
+    row's interval (cached_blocks/bytes stay gauges)."""
+    if engine.paged:
+        kv = engine.pool.stats()
+        kv["cow_copies"] -= cow_base
+        kv["dense_bytes"] = dense_kv_bytes(engine.cfg, n_slots,
+                                           engine.max_len)
+        kv["hbm_saved_bytes"] = kv["dense_bytes"] - kv["peak_bytes_in_use"]
+        serving["kv"] = kv
     if prefix_cache is not None:
         pc = prefix_cache.stats()
         for key in ("lookups", "hits", "tokens_matched", "insertions",
@@ -123,7 +125,7 @@ def serve_best_of_n(engine, tok, tasks: Sequence[T.MathTask], *, n: int,
                                 prompt_len=prompt_len,
                                 prefix_cache=prefix_cache, tracer=tracer,
                                 profiler=profiler, spec=spec)
-    cow_base = engine.pool.reset_peak()
+    cow_base = engine.pool.reset_peak() if engine.paged else 0
     cache_base = prefix_cache.stats() if prefix_cache is not None else None
     for i, prompt in enumerate(prompts):
         sched.submit(Request(req_id=i, prompt=prompt,
@@ -205,7 +207,7 @@ def serve_beam_search(engine, tok, tasks: Sequence[T.MathTask], *,
                                 prompt_len=prompt_len,
                                 prefix_cache=prefix_cache, tracer=tracer,
                                 profiler=profiler, spec=spec)
-    cow_base = engine.pool.reset_peak()
+    cow_base = engine.pool.reset_peak() if engine.paged else 0
     cache_base = prefix_cache.stats() if prefix_cache is not None else None
     dot_id = int(tok.encode(".", bos=False)[0])
     for i, task in enumerate(tasks):

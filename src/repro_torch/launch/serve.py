@@ -1,6 +1,6 @@
 """Serving entry point of the port: test-time scaling (Best-of-N,
-self-consistency, PRM beam search) over the paged KV pool, on CUDA
-unless asked otherwise.
+self-consistency, PRM beam search) over the paged KV pool (``--paged``)
+or dense cache rows, on CUDA unless asked otherwise.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-1.5b \\
       --quantize --method best_of_n --budget 8 --tasks 4 \\
@@ -11,6 +11,7 @@ unless asked otherwise.
   ... --continuous --paged --spec-k 4 [--self-draft | --draft-model ARCH]
   ... --continuous --paged --kv-quant q8 --trace trace.json \\
       --profile profile.json [--canary-rate 0.25] [--metrics]
+  ... --arch zamba2-1.2b --quantize --continuous        (dense rows)
 
 ``--continuous`` serves Best-of-N and beam search through the slot
 scheduler; without it (and always for self-consistency) each task runs
@@ -20,10 +21,16 @@ drafted by the target itself or by a small registry model.  ``--trace``
 writes the scheduler's Chrome trace (validate it with ``python -m
 repro_torch.serving.telemetry``), ``--profile`` the kernel profile with
 its numerics canary (``python -m repro_torch.serving.profiling``), and
-``--metrics`` prints every summary key.  ``--arch`` takes every config
-of ``configs/registry.py``: the transformer family, dense and MoE
-(olmoe-1b-7b, mixtral-8x7b).  Weights are random, from a seeded
-generator (the repository ships no checkpoint).  ``--smoke``
+``--metrics`` prints every summary key.  Without ``--paged`` each row owns
+dense cache rows (the JAX package's default layout), the only layout of
+the Mamba2 / zamba2 families, whose state is per row: the pool's options
+(``--kv-quant``, ``--prefix-cache``, ``--spec-k``) then refuse, and the
+profiler's canary never fires.  ``--arch`` takes every config of
+``configs/registry.py``: the transformer family, dense and MoE
+(olmoe-1b-7b, mixtral-8x7b), mamba2-130m and the zamba2-1.2b hybrid
+(mamba2-130m has no W4A16 form: its ``in_proj`` does not tile, so
+``--quantize`` raises, as in the JAX package).  Weights are random, from
+a seeded generator (the repository ships no checkpoint).  ``--smoke``
 selects the reduced config; ``--device cpu`` runs the kernels' plain
 versions on the CPU.  The paged-attention exp mode comes from
 ``REPRO_TORCH_PAGED_ATTN`` (exact | lut).
@@ -72,7 +79,7 @@ def parse_args(argv=None):
                     help="decode slots for --continuous")
     ap.add_argument("--paged", action="store_true",
                     help="back the decode rows with the paged KV block "
-                         "pool (required: the port's only KV layout)")
+                         "pool (transformer family; else dense rows)")
     ap.add_argument("--block-size", type=int, default=16,
                     help="KV block size in tokens")
     ap.add_argument("--kv-blocks", type=int, default=0,
@@ -156,12 +163,13 @@ def parse_args(argv=None):
         args.max_tokens = min(args.max_tokens, 12)
         args.beam_steps = min(args.beam_steps, 2)
         args.step_tokens = min(args.step_tokens, 8)
-    if not args.paged:
-        raise SystemExit("the port serves from the paged KV pool only: pass "
-                         "--paged")
-    if args.prefix_cache and not args.continuous:
-        raise SystemExit("--prefix-cache requires --continuous (the cache "
-                         "is driven by the scheduler)")
+    if args.kv_quant != "none" and not args.paged:
+        raise SystemExit("--kv-quant requires --paged (the quantized pool "
+                         "is a block-pool storage layout)")
+    if args.prefix_cache and not (args.paged and args.continuous):
+        raise SystemExit("--prefix-cache requires --paged --continuous (the "
+                         "cache lives in the paged block pool and is driven "
+                         "by the scheduler)")
     if MAX_LEN % args.block_size:
         raise SystemExit(f"--block-size must divide max_len={MAX_LEN}")
     if (args.draft_model or args.self_draft) and not args.spec_k:
@@ -174,7 +182,7 @@ def parse_args(argv=None):
     if args.profile and not args.continuous:
         raise SystemExit("--profile requires --continuous (the profiler "
                          "samples the scheduler's decode steps)")
-    if args.spec_k and not args.continuous:
+    if args.spec_k and not (args.paged and args.continuous):
         raise SystemExit("--spec-k requires --paged --continuous "
                          "(draft lanes and rejected suffixes are refcount "
                          "operations on the block pool)")
@@ -199,10 +207,11 @@ def spec_of(args) -> TTSSpec:
 def build_engine(args) -> tuple:
     """(engine, tokenizer) for parsed ``args``: random params from seed 0
     on the requested device, optionally W4A16-quantized, cast once to the
-    compute dtype.  The pool holds one full-length sequence per row of
-    the widest of the slots, the budget and the beam fan-out (the direct
-    path forks that many rows at once and has no preemption to fall back
-    on)."""
+    compute dtype.  With ``--paged`` the pool holds one full-length
+    sequence per row of the widest of the slots, the budget and the beam
+    fan-out (the direct path forks that many rows at once and has no
+    preemption to fall back on); without it each row owns dense cache
+    rows."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     tok = ByteTokenizer()
@@ -217,12 +226,15 @@ def build_engine(args) -> tuple:
     if args.method == "beam_search":
         width, expand = spec_of(args).beam_shape()
         fan = width * expand
-    rows = max(args.slots, args.budget, fan)
-    n_blocks = args.kv_blocks or 1 + rows * (MAX_LEN // args.block_size)
+    kv_kwargs = {}
+    if args.paged:
+        rows = max(args.slots, args.budget, fan)
+        kv_kwargs = dict(
+            paged=True, block_size=args.block_size, kv_quant=args.kv_quant,
+            n_blocks=args.kv_blocks or 1 + rows * (MAX_LEN
+                                                   // args.block_size))
     engine = DecodeEngine(params, cfg, max_len=MAX_LEN, eos_id=tok.eos_id,
-                          pad_id=tok.pad_id, paged=True,
-                          block_size=args.block_size,
-                          n_blocks=n_blocks, kv_quant=args.kv_quant)
+                          pad_id=tok.pad_id, **kv_kwargs)
     return engine, tok
 
 
@@ -231,6 +243,7 @@ def main(argv=None) -> list:
     args = parse_args(argv)
     engine, tok = build_engine(args)
     print(f"[serve] device={engine.device} arch={engine.cfg.name} "
+          f"kv={'paged' if args.paged else 'dense'} "
           f"kv_quant={args.kv_quant} method={args.method} "
           f"path={'continuous' if args.continuous else 'direct'}")
     if args.continuous and args.method == "self_consistency":
@@ -288,17 +301,18 @@ def main(argv=None) -> list:
               f"-> {args.profile}")
         for w in profiler.warnings:
             print(f"[serve] profile WARNING: {w}")
-    # leak check: after a full drain the pool holds only the prefix
-    # cache's pins
-    pinned = (prefix_cache.stats()["cached_blocks"]
-              if prefix_cache is not None else 0)
-    in_use = engine.pool.blocks_in_use
-    if in_use != pinned:
-        raise SystemExit(f"[serve] KV pool leak: {in_use} blocks still in "
-                         f"use after drain (expected {pinned} "
-                         f"cache-pinned)")
-    print(f"[serve] kv pool clean: {in_use} blocks in use after drain "
-          f"({pinned} cache-pinned)")
+    if args.paged:
+        # leak check: after a full drain the pool holds only the prefix
+        # cache's pins
+        pinned = (prefix_cache.stats()["cached_blocks"]
+                  if prefix_cache is not None else 0)
+        in_use = engine.pool.blocks_in_use
+        if in_use != pinned:
+            raise SystemExit(f"[serve] KV pool leak: {in_use} blocks still "
+                             f"in use after drain (expected {pinned} "
+                             f"cache-pinned)")
+        print(f"[serve] kv pool clean: {in_use} blocks in use after drain "
+              f"({pinned} cache-pinned)")
     for r in rows:
         print(f"[serve] {r['method']} budget={r['budget']} "
               f"accuracy={r['accuracy']:.3f} "
@@ -306,7 +320,6 @@ def main(argv=None) -> list:
         if "serving" not in r:
             continue
         s = r["serving"]
-        kv = s["kv"]
         if args.metrics:
             for k in sorted(s):
                 print(f"[serve]   {k}={s[k]}")
@@ -349,6 +362,9 @@ def main(argv=None) -> list:
                   f"prefill_tokens_saved={s['prefill_tokens_saved']} "
                   f"cached_blocks={pc['cached_blocks']} "
                   f"evictions={pc['evictions']}")
+        if "kv" not in s:
+            continue
+        kv = s["kv"]
         print(f"[serve] paged kv: block_size={kv['block_size']} "
               f"kv_quant={kv['kv_quant']} "
               f"peak_blocks={kv['peak_blocks_in_use']} "

@@ -29,8 +29,11 @@ refcounted snapshot of its own rows or with a small dense model
 (``forced_step``).
 
 The engine runs in one of two KV layouts.  **Dense** (``paged=False``,
-the default): each row owns (max_len, Hkv, D) slots per layer, and
-``fork`` / ``reorder`` copy rows; the speculative drafter runs on it.
+the default): each row owns its cache rows (a transformer's (max_len,
+Hkv, D) KV slots per layer; a Mamba2 model's conv and SSM states, and the
+zamba2 hybrid's shared-block KV), and ``fork`` / ``reorder`` /
+``merge_rows`` copy every leaf's rows; the speculative drafter and the
+Mamba2 / hybrid families run on it.
 **Paged** (``paged=True``): KV lives in a refcounted block pool
 (:class:`~repro_torch.serving.kv_pool.KVPool`, or the tile-quantized
 :class:`~repro_torch.serving.kv_quant.QuantKVPool`) and each row holds a
@@ -78,9 +81,11 @@ class GenState:
 
     Paged states carry ``table`` (B, W) int32 block ids and ``n_blocks``
     (B,) owned-block counts as host numpy, their KV living in the
-    engine's pool; dense states carry ``cache``, the rows' own KV
-    {"k", "v"} of (L, B, max_len, Hkv, D), and no table.  The per-row
-    vectors live on the engine's device."""
+    engine's pool; dense states carry ``cache``, the model's dense rows
+    (``init_cache``: a transformer's {"k", "v"} of (L, B, max_len, Hkv,
+    D), a Mamba2 model's {"conv", "ssm"[, "attn_k", "attn_v"]}, batch on
+    axis 1 of every leaf), and no table.  The per-row vectors live on the
+    engine's device."""
 
     table: Optional[np.ndarray]
     n_blocks: Optional[np.ndarray]
@@ -125,6 +130,10 @@ class DecodeEngine:
                              "(DecodeEngine(paged=True))")
         if not paged:
             return
+        if cfg.family != "transformer":
+            raise ValueError(
+                f"paged KV cache supports the transformer family only "
+                f"(got {cfg.family!r})")
         if max_len % block_size:
             raise ValueError(f"max_len ({max_len}) must be a multiple of "
                              f"block_size ({block_size})")
@@ -375,16 +384,17 @@ class DecodeEngine:
         """Scatter ``src``'s rows into ``dst`` at indices ``rows`` (in
         place on ``dst``'s tensors).  Paged: the overwritten ``dst`` rows
         must already be released: block ownership moves from ``src`` rows
-        to ``dst`` rows without touching refcounts.  Dense: the rows' KV
-        slots are copied (batch is axis 1 of the cache leaves)."""
+        to ``dst`` rows without touching refcounts.  Dense: every cache
+        leaf's rows are copied (batch is axis 1 of each leaf: KV slots,
+        conv and SSM states)."""
         rows_h = np.asarray(rows, np.int64).ravel()
         r = self._vec(rows_h, torch.long)
         if self.paged:
             dst.table[rows_h] = src.table
             dst.n_blocks[rows_h] = src.n_blocks
         else:
-            for name in ("k", "v"):
-                dst.cache[name][:, r] = src.cache[name]
+            for name, leaf in dst.cache.items():
+                leaf[:, r] = src.cache[name].to(leaf.dtype)
         for name in ("cache_len", "pending_logits", "done", "logprob_sum",
                      "n_gen"):
             getattr(dst, name)[r] = getattr(src, name)
@@ -666,9 +676,8 @@ class DecodeEngine:
         # offset (usable sequence length is max_len - 1)
         model_len = torch.where(state.done, self.max_len, new_len).to(
             torch.int32)
-        logits = self.model.decode_step(self.params, tok[:, None],
-                                        self._cache(state), model_len,
-                                        self.cfg)
+        logits = self._decode(tok, self._cache(state), model_len,
+                              state.done)
         # done rows keep the logits that followed their stop token, so
         # resume() continues from them
         pending = torch.where(state.done[:, None], state.pending_logits,
@@ -680,6 +689,15 @@ class DecodeEngine:
             logprob_sum=state.logprob_sum + torch.where(
                 state.done, torch.zeros_like(lp), lp),
             n_gen=state.n_gen + (~state.done).to(torch.int32)), tok
+
+    def _decode(self, tok, cache: dict, model_len, done) -> torch.Tensor:
+        """The model's decode step over ``cache`` in place.  Recurrent
+        states (a Mamba2 model's conv and ssm) have no scratch slot: done
+        rows keep theirs unchanged (``keep=``), as the JAX engine restores
+        them by ``where`` after its step."""
+        kw = {"keep": done} if "ssm" in cache else {}
+        return self.model.decode_step(self.params, tok[:, None], cache,
+                                      model_len, self.cfg, **kw)
 
     def generate(self, state: GenState, n_steps: int,
                  generator: Optional[torch.Generator],
@@ -847,8 +865,7 @@ class DecodeEngine:
                               state.cache_len + 1).to(torch.int32)
         model_len = torch.where(state.done, self.max_len, new_len).to(
             torch.int32)
-        logits = self.model.decode_step(self.params, tok[:, None],
-                                        state.cache, model_len, self.cfg)
+        logits = self._decode(tok, state.cache, model_len, state.done)
         pending = torch.where(state.done[:, None], state.pending_logits,
                               logits.float())
         return dataclasses.replace(state, cache_len=new_len,
@@ -1159,9 +1176,10 @@ class ContinuousScheduler:
        stopped it is scored, pruned and re-expanded through one
        ``reorder`` (or finished, releasing every lane).
 
-    When a decode step cannot get its blocks (:class:`OutOfBlocks`), the
-    youngest live request is preempted — slots released, blocks freed,
-    requeued at the head to rerun from scratch — and the step retried.
+    On a paged engine, when a decode step cannot get its blocks
+    (:class:`OutOfBlocks`), the youngest live request is preempted —
+    slots released, blocks freed, requeued at the head to rerun from
+    scratch — and the step retried.
 
     With a :class:`~repro_torch.serving.prefix_cache.PrefixCache`
     attached, admission is cache-aware: each request matches the longest
@@ -1199,8 +1217,14 @@ class ContinuousScheduler:
     step is a plain step, never a speculative round).  Both default to
     None: zero overhead, bit-identical outputs.
 
-    The scheduler runs a paged engine only (the JAX package's also runs
-    the dense layout).
+    On a dense engine (``DecodeEngine(paged=False)``, the only layout of
+    the Mamba2 / hybrid families) the scheduler runs as the JAX
+    package's: no block budget and no preemption (each slot owns its
+    rows for the whole ``max_len``), every prompt padded to
+    ``prompt_len``, no canary (the profiler's exact-path replica is a
+    paged-attention one); the prefix cache and speculation, block-pool
+    operations, are refused.  Best-of-N, plain requests, beam trees, the
+    tracer and the profiler run on it.
     """
 
     def __init__(self, engine: DecodeEngine, n_slots: int = 8,
@@ -1208,11 +1232,6 @@ class ContinuousScheduler:
                  prefix_cache: Optional[PrefixCache] = None,
                  tracer: Optional[Tracer] = None, profiler=None,
                  spec: Optional[SpecConfig] = None):
-        if not engine.paged:
-            raise ValueError(
-                "ContinuousScheduler requires a paged engine "
-                "(DecodeEngine(paged=True)): admission, preemption, draft "
-                "lanes and rejected suffixes are block-pool operations")
         self.engine = engine
         # the scheduler owns its engine's tracer and profiler slots:
         # constructing one (re)binds them, so the engine's prefill / plan
@@ -1231,13 +1250,23 @@ class ContinuousScheduler:
             profiler.install()
         self._preempted: set = set()   # req_ids awaiting re-admission
         self._ft_emitted: set = set()  # req_ids whose first_token fired
+        self.paged = engine.paged
         self.n_slots = n_slots
         self.prompt_len = prompt_len
         self.stop_ids = tuple(stop_ids) or (engine.eos_id,)
-        if prefix_cache is not None and prefix_cache.pool is not engine.pool:
-            raise ValueError("prefix_cache is bound to a different KVPool "
-                             "than the engine's")
+        if prefix_cache is not None:
+            if not engine.paged:
+                raise ValueError("prefix_cache requires a paged engine "
+                                 "(DecodeEngine(paged=True))")
+            if prefix_cache.pool is not engine.pool:
+                raise ValueError("prefix_cache is bound to a different "
+                                 "KVPool than the engine's")
         self.cache = prefix_cache
+        if spec is not None and not engine.paged:
+            raise ValueError(
+                "speculative decoding requires a paged engine "
+                "(DecodeEngine(paged=True)): draft lanes and rejected "
+                "suffixes are refcount operations on the block pool")
         self.spec = spec
         # draft-model mode: one persistent dense engine whose KV shadows
         # the target's committed context (prompts prefilled at admission,
@@ -1268,8 +1297,9 @@ class ContinuousScheduler:
         self.beam_results: dict[int, dict] = {}  # req_id -> final selection
         self.metrics = SchedulerMetrics(n_slots)
         self.metrics.profiler = profiler
-        self.metrics.kv_quant = engine.pool.mode
-        self._block_bytes = engine.pool.block_bytes()
+        if self.paged:
+            self.metrics.kv_quant = engine.pool.mode
+            self._block_bytes = engine.pool.block_bytes()
 
     # -- submission ----------------------------------------------------------
     def submit(self, req: Request):
@@ -1314,12 +1344,13 @@ class ContinuousScheduler:
                 f"request {req.req_id}: prompt ({plen}) + worst-case new "
                 f"tokens ({self._max_new(req)}) = {budget} exceeds engine "
                 f"max_len - 1 = {self.engine.max_len - 1}")
-        worst = self._worst_case_blocks(req)
-        if worst > self.engine.pool.capacity:
-            raise ValueError(
-                f"request {req.req_id}: worst-case KV footprint ({worst} "
-                f"blocks) exceeds pool capacity "
-                f"({self.engine.pool.capacity} blocks)")
+        if self.paged:
+            worst = self._worst_case_blocks(req)
+            if worst > self.engine.pool.capacity:
+                raise ValueError(
+                    f"request {req.req_id}: worst-case KV footprint "
+                    f"({worst} blocks) exceeds pool capacity "
+                    f"({self.engine.pool.capacity} blocks)")
         self._n_samples[req.req_id] = (req.search.width if req.search
                                        else max(1, req.n_samples))
         self.queue.append(req)
@@ -1360,6 +1391,8 @@ class ContinuousScheduler:
         return out, int(prompt.shape[0])
 
     def _prompt_blocks(self, req: Request) -> int:
+        if not self.paged:
+            return 0  # a dense slot owns its rows
         return blocks_for(int(req.prompt.shape[0]),
                           self.engine.pool.block_size)
 
@@ -1605,7 +1638,8 @@ class ContinuousScheduler:
         if self.cache is not None:
             return self._admit_cached(free)
         admitted = prefill_tokens = 0
-        blk_budget = self.engine.pool.free_blocks
+        # dense rows take no blocks (_prompt_blocks is 0)
+        blk_budget = self.engine.pool.free_blocks if self.paged else 0
         while self.queue and free:
             head = self.queue[0]
             if self._fan(head) > len(free):
@@ -2027,7 +2061,8 @@ class ContinuousScheduler:
         for i in live:
             if self.slots[i].first_decode_step < 0:
                 self.slots[i].first_decode_step = self.step_count
-        canary = prof is not None and prof.want_canary()
+        # the canary's exact replica is a paged-attention one: paged only
+        canary = prof is not None and self.paged and prof.want_canary()
         # acceptance compares argmaxes: speculate under greedy only; a
         # canary step's exact replica is defined over the plain step
         spec_round = self.spec is not None and sc.greedy and not canary
@@ -2122,10 +2157,13 @@ class ContinuousScheduler:
             for run in boundaries:
                 self._beam_boundary(run)
         pool = self.engine.pool
-        self.metrics.peak_kv_bytes = max(
-            self.metrics.peak_kv_bytes, pool.peak_in_use * self._block_bytes)
+        if self.paged:
+            self.metrics.peak_kv_bytes = max(
+                self.metrics.peak_kv_bytes,
+                pool.peak_in_use * self._block_bytes)
         if tr is not None:
             tr.gauge("occupancy", len(live))
+        if tr is not None and self.paged:
             tr.gauge("free_blocks", pool.free_blocks)
             # the storage the pool backs vs the bytes its live blocks
             # hold: memory pressure beside occupancy on one timeline

@@ -1,9 +1,10 @@
 """The port's registry against the JAX package's, and the transformer
 family's geometries through the port's engines.
 
-Every transformer-family config of the JAX registry (full and smoke)
-equals the port's field for field, MoE included, and the port's model API
-serves each of them; the families of later slices raise.  At smoke size,
+Every config of the JAX registry but whisper-base (full and smoke)
+equals the port's field for field, MoE and the Mamba2 / zamba2 SSM
+configs included, and the port's model API serves each of them; the
+encoder-decoder family of a later slice raises.  At smoke size,
 from the JAX init carried across by ``repro_torch.bridge``: prefill and
 greedy decode logits and tokens through the paged engine over fp and Q8
 pools for gemma3 (5:1 local:global windows), stablelm, qwen2.5-14b,
@@ -33,6 +34,7 @@ from repro_torch.serving.sampler import SamplerConfig
 
 TRANSFORMERS = [a for a in JR.list_archs()
                 if JR.get_config(a).family == "transformer"]
+SSMS = ["mamba2-130m", "zamba2-1.2b"]
 # f32 on both sides, summed in other orders (~1e-6 on these logits); a Q8
 # pool can turn that into one flipped KV code at a rounding boundary, one
 # quantization step of that element (tests/test_torch_model.py)
@@ -47,22 +49,26 @@ def _fields(cfg) -> dict:
 
 @pytest.mark.parametrize("smoke", [False, True])
 def test_registry_lists_the_transformer_family_field_equal(smoke):
-    assert sorted(R.list_archs()) == sorted(TRANSFORMERS)
+    from repro_torch.models import mamba2
+
+    assert R.list_archs() == [a for a in JR.list_archs()
+                              if a != "whisper-base"]
     assert len(TRANSFORMERS) == 9
-    for arch in TRANSFORMERS:
+    for arch in TRANSFORMERS + SSMS:
         want = JR.get_config(arch, smoke=smoke)
         got = R.get_config(arch, smoke=smoke)
         assert _fields(got) == _fields(want), arch
-        assert api.get_model(got) is TR
+        assert api.get_model(got) is (TR if arch in TRANSFORMERS
+                                      else mamba2)
 
 
 def test_later_families_raise_naming_their_slice():
-    for family, word in (("mamba2", "Mamba2"), ("hybrid", "Mamba2"),
-                         ("encdec", "Whisper")):
-        with pytest.raises(NotImplementedError, match=word):
-            api.get_model(ModelConfig(name="x", family=family))
+    with pytest.raises(NotImplementedError, match="Whisper"):
+        api.get_model(ModelConfig(name="x", family="encdec"))
+    with pytest.raises(ValueError, match="unknown model family"):
+        api.get_model(ModelConfig(name="x", family="rnn"))
     with pytest.raises(KeyError):
-        R.get_config("mamba2-130m")
+        R.get_config("whisper-base")
 
 
 def test_param_count_of_olmoe_matches_the_reference():
@@ -74,6 +80,16 @@ def test_param_count_of_olmoe_matches_the_reference():
         active_only=True)
     assert round(got.param_count() / 1e9, 2) == 6.92
     assert round(got.param_count(active_only=True) / 1e9, 2) == 1.28
+
+
+@pytest.mark.parametrize("arch", SSMS)
+def test_param_count_of_the_ssm_configs_matches_the_reference(arch):
+    """The two SSM configs served at full width on the card: mamba2-130m
+    and zamba2-1.2b (its shared block counted once)."""
+    want, got = JR.get_config(arch), R.get_config(arch)
+    assert got.param_count() == want.param_count()
+    assert round(got.param_count() / 1e9, 2) == {"mamba2-130m": 0.13,
+                                                 "zamba2-1.2b": 1.17}[arch]
 
 
 def _pair(arch, kv, *, paged=True, seed=1):
@@ -163,15 +179,17 @@ def test_patch_stub_embeddings_prefill_matches_reference(paged):
 @pytest.mark.parametrize("arch", sorted(R.list_archs()))
 def test_cpu_serve_takes_every_listed_arch(arch, capsys):
     """``serve.py --arch`` for each listed config at smoke size on the CPU
-    (continuous Best-of-N on a Q8 pool): every request completes and the
-    pool drains."""
+    (continuous Best-of-N on a Q8 pool; the SSM families, which have no
+    paged layout, on dense rows): every request completes and the pool
+    drains."""
     from repro_torch.launch import serve
 
+    pool = [] if arch in SSMS else ["--paged", "--kv-quant", "q8"]
     rows = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
-                       "--continuous", "--paged", "--kv-quant", "q8",
-                       "--dry"])
+                       "--continuous", *pool, "--dry"])
     assert rows[0]["serving"]["completed_requests"] == 2
-    assert "kv pool clean: 0 blocks" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert ("kv pool clean: 0 blocks" in out) == (arch not in SSMS)
 
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "mixtral-8x7b"])

@@ -89,7 +89,7 @@ def test_cpu_serve_entry_point_runs(no_cuda, capsys):
     assert "kv pool clean: 0 blocks" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         serve.main(["--arch", "qwen2.5-1.5b", "--smoke", "--device", "cpu",
-                    "--dry"])  # the entry point serves the paged layout only
+                    "--kv-quant", "q4", "--dry"])  # a quantized pool is paged
 
 
 @pytest.mark.parametrize("draft", [["--self-draft"],
