@@ -31,7 +31,9 @@ Phases, one JSON line each:
    prefix) the same way; and a small W4A16 zamba2-style hybrid on dense
    rows (prefill, teacher-forced decode, then its conv / ssm states and
    shared-block KV), f32 on both sides and the GPU's bf16 against the
-   CPU's f32;
+   CPU's f32; a small W4A16 Whisper the same way (every self and cross
+   K/V leaf too); and one training step of a small f32 transformer
+   (loss, every grad leaf and the updated params, TF32 off);
 5. ``serve``: ``repro_torch.launch.serve`` at the full width of
    qwen2.5-1.5b (28 layers, random seeded weights, W4A16), once per path:
    continuous Best-of-8 over 4 tasks on Q8, Q4 and bf16 KV, each in exact
@@ -75,7 +77,19 @@ Phases, one JSON line each:
    built: ``peak_device_bytes`` is the serving peak,
    ``load_peak_device_bytes`` the weights' init, beside the pool's own
    ``peak_kv_bytes`` (dense paths: ``dense_cache_bytes``, the rows'
-   cache from its shapes);
+   cache from its shapes).  Then ``encdec/whisper``: whisper-base at its
+   published width (6 + 6 layers, d_model 512, 1500 frames, vocab
+   51865), W4A16, bf16, through ``DecodeEngine`` as the JAX package
+   serves it (2 clips of random frames prefilled with 4-token prompts on
+   dense rows, forked x 4, 48 tokens): exactly 84 K3 launches per
+   prefill (42 at M = 3000) and 42 per decode step, every row finished.
+   Then ``train``: ``repro_torch.launch.train`` at qwen2.5-1.5b's
+   published width, 6 steps of batch 8 x 128 (finite losses and grad
+   norms, every param leaf but the key biases changed; step ms, tokens/s,
+   peak bytes), the trained params saved as a checkpoint and restored
+   (bytes and seconds), ``serve --ckpt`` Best-of-8 from it (W4A16, Q8 KV,
+   ``train/serve-ckpt``), and a 4-layer run resumed after a relaunch at
+   step 4 (all under a temp dir in ``build/``, removed);
 6. ``observe``: the serve again through ``--trace`` and ``--profile``
    (the request tracer, the kernel profiler with its numerics canary at
    rate 0.25), Best-of-8 over 2 tasks: Q8/exact off, on, off, on, then on
@@ -157,11 +171,19 @@ def gemm_layout(cfg) -> dict:
     every FFN down is Q8, not K3); per Mamba2 layer the Q4 ``in_proj``
     and ``out_proj``, and per application of the zamba2 hybrid's shared
     block (after every ``hybrid_attn_every``-th layer) its attention
-    projections, gate and up."""
+    projections, gate and up; per Whisper decoder layer (a decode step,
+    or a prefill's decoder) self q, k, v, o, cross q and o and fc1
+    (``encoder_gemm_layout`` has a prefill's encoder side)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim()
     attn = [(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
             (d, cfg.n_kv_heads * hd), (cfg.n_heads * hd, d)]
-    if cfg.family == "transformer":
+    if cfg.family == "encdec":
+        # the decoder, per decode step and per prefill (M = its tokens):
+        # self q, k, v, o, cross q and o, fc1; the encoder's side is
+        # encoder_gemm_layout
+        blocks = [([attn[0], attn[3], (d, cfg.d_ff)] + attn,
+                   cfg.n_layers)]
+    elif cfg.family == "transformer":
         blocks = [(attn + ([] if cfg.moe else [(d, cfg.d_ff)] * 2),
                    cfg.n_layers)]
     else:
@@ -177,6 +199,21 @@ def gemm_layout(cfg) -> dict:
         for kn in shapes:
             out[kn] = out.get(kn, 0) + times
     return {kn: n for kn, n in out.items() if n}
+
+
+def encoder_gemm_layout(cfg) -> dict:
+    """{(K, N): launches} of K3 per encoder-decoder prefill at M = clips x
+    T_enc: per encoder layer q, k, v, o and fc1 (fc2 is Q8), and per
+    decoder layer the cross K and V of the encoder output."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim()
+    kv = (d, cfg.n_kv_heads * hd)
+    out: dict = {}
+    for kn, times in (((d, cfg.n_heads * hd), cfg.n_encoder_layers),
+                      ((cfg.n_heads * hd, d), cfg.n_encoder_layers),
+                      (kv, 2 * cfg.n_encoder_layers + 2 * cfg.n_layers),
+                      ((d, cfg.d_ff), cfg.n_encoder_layers)):
+        out[kn] = out.get(kn, 0) + times
+    return out
 
 
 def emit(phase: str, **kw) -> None:
@@ -1188,6 +1225,154 @@ def reference_ssm_check(dev: str = "cuda") -> None:
                    else "0.1 x max |reference|"))
 
 
+def reference_whisper_check(dev: str = "cuda") -> None:
+    """The Whisper encoder-decoder, small, W4A16, GPU against CPU from the
+    same weights, frames and tokens: 2 + 2 layers of d_model 64 (4 heads
+    of 16, d_ff 128, every projection tiling into Q4 groups), 24 frames,
+    ragged prompts (12, 5, 9 in a width of 12) prefilled into dense rows,
+    then 10 teacher-forced decode steps: each call's logits and, after
+    the last, every cache leaf (self and cross K/V).  f32 on both sides,
+    then the GPU in bf16 against the CPU's f32, as the hybrid's check.
+    K3 launches 28 times per prefill (2 x (q, k, v, o, fc1) in the
+    encoder, 2 x (cross k, v), 2 x 7 in the decoder) and 14 per decode
+    step on the GPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.kernels import lut_dequant_gemm as G
+    from repro_torch.models import whisper as W
+    from repro_torch.quant.qlinear import cast_params, quantize_model_params
+
+    cfg = ModelConfig(name="reference-whisper", family="encdec",
+                      n_layers=2, n_encoder_layers=2, d_model=64, n_heads=4,
+                      n_kv_heads=4, head_dim=16, d_ff=128, vocab_size=320,
+                      qkv_bias=True, rope_theta=0.0, encoder_seq_len=24,
+                      max_seq_len=64, tie_embeddings=True, dtype="float32")
+    per_prefill = sum(gemm_layout(cfg).values()) + sum(
+        encoder_gemm_layout(cfg).values())
+    per_step = sum(gemm_layout(cfg).values())
+    params_cpu = quantize_model_params(W.init_params(cfg, seed=6,
+                                                     device="cpu"))
+    rng = np.random.default_rng(4)
+    B, S, steps = 3, 12, 10
+    lens = torch.tensor([12, 5, 9], dtype=torch.int32)
+    toks = torch.from_numpy(rng.integers(3, 300, (B, S)).astype(np.int32))
+    frames = torch.from_numpy(rng.standard_normal(
+        (B, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32))
+    forced = torch.from_numpy(rng.integers(3, 300, (B, steps)).astype(
+        np.int32))
+
+    def run(c, params, d):
+        params = cast_params(params, getattr(torch, c.dtype))
+        cache = W.init_cache(c, B, 32, device=d)
+        before = G.lut_dequant_gemm.launches
+        out = [W.prefill(params, toks.to(d), c, lengths=lens.to(d),
+                         cache=cache, embeddings=frames.to(d))]
+        clen = lens.to(d)
+        for t in range(steps):
+            clen = clen + 1
+            out.append(W.decode_step(params, forced[:, t:t + 1].to(d),
+                                     cache, clen, c))
+        launched = G.lut_dequant_gemm.launches - before
+        if d != "cpu" and launched != per_prefill + per_step * steps:
+            raise AssertionError(f"reference/whisper: {launched} K3 "
+                                 f"launches, expected "
+                                 f"{per_prefill + per_step * steps}")
+        return torch.stack(out).cpu(), {k: v.float().cpu()
+                                        for k, v in cache.items()}
+
+    want, want_cache = run(cfg, params_cpu, "cpu")
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        got, got_cache = run(c, to_device(params_cpu, dev), dev)
+        errs, ranges = {}, {}
+        for name, g, w in [("logits", got, want)] + [
+                (k, got_cache[k], want_cache[k]) for k in want_cache]:
+            ranges[name] = float(w.abs().max())
+            tol = 1e-4 if dtype == "float32" else 0.1 * ranges[name]
+            errs[name] = check_close(f"reference/whisper/{dtype}/{name}", g,
+                                     w, tol,
+                                     1e-4 if dtype == "float32" else 0)
+        emit("reference", model="whisper", dtype=dtype, kv="dense",
+             path="prefill_decode", shape=list(got.shape),
+             max_abs_err=errs, max_abs_reference=ranges,
+             k3_launches_per_prefill=per_prefill,
+             k3_launches_per_step=per_step,
+             atol=("1e-4 (rtol 1e-4)" if dtype == "float32"
+                   else "0.1 x max |reference|"))
+
+
+def reference_train_check(dev: str = "cuda") -> None:
+    """One training step of a small f32 transformer (2 layers, d_model
+    128, GQA 4:2, QKV bias, remat full) on the GPU against the CPU from
+    the same params and batch, TF32 off: the loss within 1e-5 relative
+    and every grad leaf within 1e-4 of its largest magnitude (floored at
+    1e-3 of the tree's largest: a key bias's grad is zero in exact
+    arithmetic), then the AdamW update's params (eps 1e-5) within
+    1e-5."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import transformer as TR
+    from repro_torch.train import loop as TL
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+
+    cfg = ModelConfig(name="reference-train", n_layers=2, d_model=128,
+                      n_heads=4, n_kv_heads=2, d_ff=256, vocab_size=320,
+                      qkv_bias=True, dtype="float32", param_dtype="float32")
+    params_cpu = TR.init_params(cfg, seed=8, device="cpu")
+    rng = np.random.default_rng(9)
+    batch = (rng.integers(3, 300, (4, 32)).astype(np.int32),
+             rng.integers(3, 300, (4, 32)).astype(np.int32),
+             (rng.random((4, 32)) > 0.1).astype(np.float32))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for d in ("cpu", dev):
+            # a copy on either device: the step updates its params in place
+            params = T.map_with_path(lambda _, t: t.to(d, copy=True),
+                                     params_cpu)
+            tb = TL.to_batch(batch, d)
+            (loss, _), grads = TL.value_and_grad(params, tb, cfg)
+            # eps 1e-5: Adam would turn a grad element that is zero but
+            # for rounding into a full step of either sign
+            step = TL.make_train_step(cfg, AdamWConfig(
+                lr=1e-3, warmup_steps=0, eps=1e-5))
+            new, _, _ = step(params, init_opt_state(params), tb)
+            out[d] = (float(loss), to_device(grads, "cpu"),
+                      to_device(new, "cpu"))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    (lw, gw, pw), (lg, gg, pg) = out["cpu"], out[dev]
+    if not abs(lg - lw) <= 1e-5 * abs(lw):
+        raise AssertionError(f"reference/train: loss {lg} vs {lw}")
+    want = T.stacked_leaves(gw)
+    top = max(float(torch.stack(w).abs().max()) for _, w, _ in want)
+    errs = {}
+    for (path, g, _), (_, w, _) in zip(T.stacked_leaves(gg), want):
+        g, w = torch.stack(g), torch.stack(w)
+        scale = max(float(w.abs().max()), 1e-3 * top)
+        errs[path] = float((g - w).abs().max())
+        if errs[path] > 1e-4 * scale:
+            raise AssertionError(f"reference/train: grad {path} "
+                                 f"{errs[path]:.3e} over 1e-4 x {scale:.3e}")
+    perr = max(float((torch.stack(a) - torch.stack(b)).abs().max())
+               for (_, a, _), (_, b, _) in zip(T.stacked_leaves(pg),
+                                               T.stacked_leaves(pw)))
+    if perr > 1e-5:
+        raise AssertionError(f"reference/train: updated params {perr:.3e}")
+    emit("reference", model="train", dtype="float32", loss=lg,
+         loss_reference=lw, grad_leaves=len(errs),
+         grad_max_abs_err=max(errs.values()), params_max_abs_err=perr,
+         tolerance="loss 1e-5 rel, grads 1e-4 x leaf max, params 1e-5")
+
+
 # ---------------------------------------------------------------------------
 # the main path: full-width serving
 # ---------------------------------------------------------------------------
@@ -1672,6 +1857,286 @@ def serve_runs() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# whisper-base on the dense engine, and training with the checkpointer
+# ---------------------------------------------------------------------------
+
+# whisper-base at its published width (6 + 6 layers, d_model 512, 8 heads
+# of 64, d_ff 2048, 1500 frames, vocab 51865), W4A16, bf16 compute, seed 0:
+# the JAX package's serving path for it, DecodeEngine.prefill(tokens,
+# lengths, embeddings=frames) on dense rows, fork, generate
+WHISPER_ARCH = "whisper-base"
+WHISPER_CLIPS, WHISPER_PROMPT, WHISPER_FORK, WHISPER_TOKENS = 2, 4, 4, 48
+
+
+def whisper_run(dev: str = "cuda") -> dict:
+    """Serve whisper-base once: 2 clips of random frames (1500, 512) with
+    4-token prompts prefilled on dense rows, forked x 4 to 8 rows, 48
+    tokens sampled (the default sampler, seeded).  Launch counts are
+    reset just before the prefill and read just after the last step: K3
+    exactly ``encoder_gemm_layout`` at M = clips x 1500 plus
+    ``gemm_layout`` at M = clips x prompt per prefill, and ``gemm_layout``
+    at M = 8 per decode step; no other kernel.  Every row must finish (48
+    tokens or a stop) with finite logits.  Reports decode tok/s (rows
+    advanced per step over the wall from the engine's build), step p50 /
+    p99 (``DecodeEngine._step_core`` ended by a synchronize), prefill ms,
+    the serving and load peaks and ``dense_cache_bytes``.  Returns the
+    run's {"counts", "shapes", "kv_shapes", "kv_geom"}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.kernels import ops
+    from repro_torch.models import whisper as W
+    from repro_torch.quant.qlinear import cast_params, quantize_model_params
+    from repro_torch.serving.engine import DecodeEngine
+
+    cfg = get_config(WHISPER_ARCH)
+    tok = ByteTokenizer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = cast_params(quantize_model_params(W.init_params(
+        cfg, seed=0, device=dev)), getattr(torch, cfg.dtype))
+    engine = DecodeEngine(params, cfg, max_len=256, eos_id=tok.eos_id,
+                          pad_id=tok.pad_id)
+    torch.cuda.synchronize()
+    load_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t_build = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    frames = torch.randn((WHISPER_CLIPS, cfg.encoder_seq_len, cfg.d_model),
+                         generator=gen, device=dev)
+    prompts = torch.randint(3, 259, (WHISPER_CLIPS, WHISPER_PROMPT),
+                            generator=gen, device=dev, dtype=torch.int32)
+    steps = []
+    orig_step = DecodeEngine._step_core
+
+    def stepping(self, state, *a, **kw):
+        t0 = time.perf_counter()
+        out = orig_step(self, state, *a, **kw)
+        torch.cuda.synchronize()
+        steps.append((int((~state.done).sum()), time.perf_counter() - t0))
+        return out
+
+    DecodeEngine._step_core = stepping
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        st = engine.prefill(prompts, None, frames)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        st = engine.fork(st, WHISPER_FORK)
+        st, toks = engine.generate(st, WHISPER_TOKENS, gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        counts = ops.launch_counts()
+        shapes = ops.gemm_launches_by_shape()
+    finally:
+        DecodeEngine._step_core = orig_step
+    rows = WHISPER_CLIPS * WHISPER_FORK
+    want = {}
+    for layout, m, n in (
+            (encoder_gemm_layout(cfg), WHISPER_CLIPS * cfg.encoder_seq_len,
+             1),
+            (gemm_layout(cfg), WHISPER_CLIPS * WHISPER_PROMPT, 1),
+            (gemm_layout(cfg), rows, len(steps))):
+        for (k, nn), per in layout.items():
+            want[(m, k, nn)] = want.get((m, k, nn), 0) + per * n
+    others = {k: v for k, v in counts.items() if k != "lut_dequant_gemm"}
+    if len(steps) != WHISPER_TOKENS or shapes != want or any(
+            others.values()) or counts["lut_dequant_gemm"] != sum(
+            want.values()):
+        raise AssertionError(f"encdec/whisper: {len(steps)} steps, launches "
+                             f"{counts} {shapes}, expected {want}")
+    n_gen = st.n_gen.cpu()
+    finished = bool(((n_gen == WHISPER_TOKENS) | st.done.cpu()).all())
+    if not finished or not bool(torch.isfinite(st.pending_logits).all()):
+        raise AssertionError(f"encdec/whisper: rows not finished or "
+                             f"non-finite logits (n_gen {n_gen.tolist()})")
+    if tuple(toks.shape) != (rows, WHISPER_TOKENS):
+        raise AssertionError(f"encdec/whisper: tokens {tuple(toks.shape)}")
+    step_s = np.array([dt for _, dt in steps])
+    decode = sum(r for r, _ in steps)
+    wall = t1 - t_build
+    cache_bytes = sum(
+        t.numel() * t.element_size() for t in W.init_cache(
+            cfg, rows, engine.max_len, t_enc=cfg.encoder_seq_len,
+            device="meta").values())
+    emit("serve", path="encdec/whisper", arch=cfg.name, kv_quant="dense",
+         impl="exact", method="prefill_fork_generate", route="engine",
+         clips=WHISPER_CLIPS, frames=cfg.encoder_seq_len,
+         prompt=WHISPER_PROMPT, rows=rows, steps=len(steps),
+         decode_tokens=decode, decode_tok_per_s=decode / wall,
+         step_time_p50_ms=float(np.percentile(step_s, 50)) * 1e3,
+         step_time_p99_ms=float(np.percentile(step_s, 99)) * 1e3,
+         prefill_ms=prefill_ms, serve_wall_s=wall,
+         peak_device_bytes=torch.cuda.max_memory_allocated(),
+         load_peak_device_bytes=load_peak, dense_cache_bytes=cache_bytes,
+         finished_rows=int(((n_gen == WHISPER_TOKENS)
+                            | st.done.cpu()).sum()),
+         launches=counts,
+         gemm_launches={"x".join(map(str, k)): v
+                        for k, v in sorted(shapes.items())},
+         k3_launches_per_prefill=sum(gemm_layout(cfg).values()) + sum(
+             encoder_gemm_layout(cfg).values()),
+         k3_launches_per_step=sum(gemm_layout(cfg).values()))
+    del engine, params, st
+    torch.cuda.empty_cache()
+    return {"counts": counts, "shapes": shapes, "kv_shapes": {},
+            "kv_geom": (cfg.n_kv_heads, cfg.resolved_head_dim())}
+
+
+TRAIN_ARGS = ["--arch", "qwen2.5-1.5b", "--steps", "6", "--batch", "8",
+              "--seq", "128"]
+# the resume chain: 4 layers of the same widths, a checkpoint every 2
+# steps, relaunched from 4 to 6
+CHAIN_LAYERS = 4
+CHAIN_ARGS = ["--arch", "qwen2.5-1.5b", "--batch", "8", "--seq", "128",
+              "--ckpt-every", "2"]
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def train_phase(dev: str = "cuda") -> dict:
+    """``repro_torch.launch.train`` at qwen2.5-1.5b's published width (28
+    layers, d_model 1536, vocab 151936; bf16 compute, f32 master params,
+    remat full), 6 steps of batch 8 x 128 tokens: every loss and grad norm
+    finite, every param leaf changed but the key biases (whose grad is
+    zero in exact arithmetic).  Then the trained params saved as a
+    params-only checkpoint and restored (bit-equal), each timed;
+    ``serve --ckpt`` from it, W4A16, continuous Best-of-8 over 2 tasks on
+    Q8 KV, every request complete; then the resume chain at 4 layers:
+    ``--steps 4 --ckpt-every 2``, relaunched to ``--steps 6``, which must
+    resume at step 4.  Everything is written under a temp dir, removed at
+    the end.  Returns the serve run's {"counts", "shapes", ...}."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, train
+    from repro_torch.models import api
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="train_", dir=ROOT / "build"))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        on = [] if dev == "cuda" else ["--device", dev]
+        res = train.main(TRAIN_ARGS + on)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        cfg = res["cfg"]
+        vals = res["losses"] + res["grad_norms"]
+        if len(res["losses"]) != 6 or not all(map(math.isfinite, vals)):
+            raise AssertionError(f"train: losses {res['losses']} grad "
+                                 f"norms {res['grad_norms']}")
+        params = res["state"]["params"]
+        init = api.get_model(cfg).init_params(cfg, seed=0, device=dev)
+        unchanged = [p for (p, a, _), (_, b, _) in zip(
+            T.stacked_leaves(params), T.stacked_leaves(init))
+            if all(torch.equal(x, y) for x, y in zip(a, b))]
+        del init
+        if any(not p.endswith("wk/b") for p in unchanged):
+            raise AssertionError(f"train: params unchanged: {unchanged}")
+        step_s = np.array(res["step_s"][1:])
+        batch, seq = (int(TRAIN_ARGS[TRAIN_ARGS.index(f) + 1])
+                      for f in ("--batch", "--seq"))
+        n_params = sum(p.numel() for p in T.flatten(params)[0])
+        # params-only checkpoint, written and read back
+        ck = Checkpointer(str(tmp / "params"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(params, step=6)
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = _dir_bytes(tmp / "params")
+        t0 = time.perf_counter()
+        back, _ = ck.restore(api.abstract_params(cfg), device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if not all(torch.equal(a, b) for a, b in zip(
+                T.flatten(back)[0], T.flatten(params)[0])):
+            raise AssertionError("train: restored params differ")
+        emit("train", arch=cfg.name, layers=cfg.n_layers,
+             d_model=cfg.d_model, vocab=cfg.vocab_size, params=n_params,
+             dtype=cfg.dtype, param_dtype=cfg.param_dtype, remat=cfg.remat,
+             steps=len(res["losses"]), batch=batch, seq=seq,
+             losses=res["losses"], grad_norms=res["grad_norms"],
+             step_ms=[s * 1e3 for s in res["step_s"]],
+             step_ms_p50_after_first=float(np.percentile(step_s, 50)) * 1e3,
+             tokens_per_s=batch * seq / float(np.percentile(step_s, 50)),
+             first_step_ms=res["step_s"][0] * 1e3, main_wall_s=wall,
+             peak_device_bytes=peak, unchanged_leaves=unchanged,
+             ckpt_bytes=ckpt_bytes, ckpt_save_s=save_s,
+             ckpt_restore_s=restore_s)
+        del res, params, back
+        torch.cuda.empty_cache()
+        # serve the checkpoint, W4A16
+        argv = ["--arch", "qwen2.5-1.5b", "--ckpt", str(tmp / "params"),
+                "--quantize", "--method", "best_of_n", "--budget", "8",
+                "--tasks", "2", "--continuous", "--paged", "--kv-quant",
+                "q8"] + on
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rows = serve.main(argv)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        shapes = ops.gemm_launches_by_shape()
+        s = rows[0]["serving"]
+        if s["completed_requests"] != 2 or s["completed_samples"] != 16 \
+                or not counts["lut_dequant_gemm"] \
+                or not counts["quant_paged_attention"]:
+            raise AssertionError(f"train/serve-ckpt: {s} {counts}")
+        emit("train_serve", path="train/serve-ckpt", args=argv[2:],
+             accuracy=rows[0]["accuracy"],
+             decode_tok_per_s=s["decode_tok_per_s"], main_wall_s=serve_s,
+             launches=counts)
+        shutil.rmtree(tmp / "params")
+        # the resume chain at 4 layers
+        orig = train.get_config
+
+        def four_layers(arch, smoke=False):
+            return orig(arch, smoke=smoke).with_(n_layers=CHAIN_LAYERS)
+
+        train.get_config = four_layers
+        try:
+            chain = ["--ckpt-dir", str(tmp / "chain")]
+            t0 = time.perf_counter()
+            first = train.main(CHAIN_ARGS + chain + ["--steps", "4"] + on)
+            second = train.main(CHAIN_ARGS + chain + ["--steps", "6"] + on)
+            chain_s = time.perf_counter() - t0
+        finally:
+            train.get_config = orig
+        if first["start"] != 0 or second["start"] != 4 or \
+                len(second["losses"]) != 2 or \
+                int(second["state"]["step"]) != 6 or not all(
+                    map(math.isfinite, first["losses"] + second["losses"])):
+            raise AssertionError(f"train/resume: starts {first['start']}, "
+                                 f"{second['start']}; losses "
+                                 f"{first['losses']} {second['losses']}")
+        emit("train_resume", layers=CHAIN_LAYERS, first_start=first["start"],
+             second_start=second["start"], losses=first["losses"]
+             + second["losses"], ckpt_bytes=_dir_bytes(tmp / "chain"),
+             wall_s=chain_s)
+        del first, second
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"counts": counts, "shapes": shapes, "kv_shapes": {},
+            "kv_geom": (cfg.n_kv_heads, cfg.resolved_head_dim())}
+
+
+# ---------------------------------------------------------------------------
 # observability: the request tracer and the kernel profiler on the serve
 # ---------------------------------------------------------------------------
 
@@ -2112,8 +2577,12 @@ def main() -> int:
     reference_check()
     reference_family_check()
     reference_ssm_check()
+    reference_whisper_check()
+    reference_train_check()
     runs, spec = serve_runs()
     spec_parity(spec, spec.pop("eos_id"))
+    runs["encdec/whisper"] = whisper_run()
+    runs["train/serve-ckpt"] = train_phase()
     observe_runs()
     # K3 and K4 at the shapes the serve runs launched them with: K3's M on
     # the north-star path (8 decode slots, a Best-of-N group's padded
@@ -2122,12 +2591,13 @@ def main() -> int:
     # on the speculative paths (the verify's 8 slots x W), on the
     # olmoe-1b-7b paths (its (2048, 2048) projections) and on the dense
     # paths (zamba2-1.2b's in_proj (2048, 8384), out_proj (4096, 2048)
-    # and shared block; qwen2.5-1.5b's over 2 tasks); K4's R on the prefix
-    # paths and the verify's prefix gathers
+    # and shared block; qwen2.5-1.5b's over 2 tasks) and on whisper-base
+    # (M = 3000 in its encoder and cross K/V, 8 in its decoder); K4's R
+    # on the prefix paths and the verify's prefix gathers
     gemm_mkn, kv_r = {}, {}
     for path in ("q8/exact", "q8/prefix", "q4/prefix", "sc/direct",
                  "beam/sched", "beam/direct") + SPEC_PATHS + MOE_PATHS + \
-            DENSE_PATHS:
+            DENSE_PATHS + ("encdec/whisper",):
         for mkn in runs[path]["shapes"]:
             gemm_mkn.setdefault(mkn, path)
         for mode, r in runs[path]["kv_shapes"]:

@@ -1,9 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's
-entry points.  Lists the architectures the port serves: the JAX
-package's registry but for ``whisper-base`` (the encoder-decoder family
-comes with a later slice), i.e. the transformer family (dense, GQA, QKV
-bias, sliding window, local:global, MoE, the ``patch_stub`` modality
-frontend), Mamba2 (mamba2-130m) and the zamba2 hybrid (zamba2-1.2b)."""
+entry points.  Lists the JAX package's registry whole: the transformer
+family (dense, GQA, QKV bias, sliding window, local:global, MoE, the
+``patch_stub`` modality frontend), Mamba2 (mamba2-130m), the zamba2
+hybrid (zamba2-1.2b) and the Whisper encoder-decoder (whisper-base)."""
 from __future__ import annotations
 
 import importlib
@@ -21,6 +20,7 @@ _ARCH_MODULES = {
     "olmoe-1b-7b": "olmoe_1b_7b",
     "mixtral-8x7b": "mixtral_8x7b",
     "zamba2-1.2b": "zamba2_1_2b",
+    "whisper-base": "whisper_base",
     # the paper's own models
     "qwen2.5-1.5b": "qwen2_5_1_5b",
     "llama3.2-1b": "llama3_2_1b",

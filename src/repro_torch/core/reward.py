@@ -90,6 +90,14 @@ def reward_apply(params, tokens, lengths, cfg: ModelConfig):
     return L.linear(params["head"], h)[:, 0]
 
 
+def reward_loss(params, tokens, lengths, labels, cfg: ModelConfig):
+    """Binary cross-entropy with logits on (sequence, correct?) pairs, in
+    the JAX package's stable form."""
+    logits = reward_apply(params, tokens, lengths, cfg)
+    return torch.mean(torch.clamp_min(logits, 0) - logits * labels
+                      + torch.log1p(torch.exp(-logits.abs())))
+
+
 class LearnedScorer:
     """ORM / PRM over text (tokenizes internally).
 

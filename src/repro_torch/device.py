@@ -17,3 +17,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "CUDA is not available; pass device='cpu' (or --device cpu) to "
             "run on the CPU")
     return dev
+
+
+def param_generator(device: torch.device, seed: int) -> torch.Generator:
+    """A seeded generator for a model's random init on ``device``.  On the
+    ``meta`` device (shapes and dtypes only: a checkpoint's restore
+    template) the generator is the CPU's, which ``meta`` draws accept."""
+    gen = torch.Generator(device="cpu" if device.type == "meta" else device)
+    gen.manual_seed(seed)
+    return gen

@@ -30,7 +30,13 @@ profiler's canary never fires.  ``--arch`` takes every config of
 (olmoe-1b-7b, mixtral-8x7b), mamba2-130m and the zamba2-1.2b hybrid
 (mamba2-130m has no W4A16 form: its ``in_proj`` does not tile, so
 ``--quantize`` raises, as in the JAX package).  Weights are random, from
-a seeded generator (the repository ships no checkpoint).  ``--smoke``
+a seeded generator unless ``--ckpt DIR`` restores a params-only
+checkpoint (``checkpoint/checkpointer.py``; ``launch/train.py`` saves
+{"params", "opt", "step"} trees, which, as in the JAX package, this
+restore does not take).  ``--cache-capacity N`` bounds the prefix
+cache's pinned blocks.  whisper-base is refused: neither the scheduler's
+requests nor this entry point take the encoder's frames (nor do the JAX
+package's); it serves through ``DecodeEngine``.  ``--smoke``
 selects the reduced config; ``--device cpu`` runs the kernels' plain
 versions on the CPU.  The paged-attention exp mode comes from
 ``REPRO_TORCH_PAGED_ATTN`` (exact | lut).
@@ -71,6 +77,10 @@ def parse_args(argv=None):
     ap.add_argument("--max-tokens", type=int, default=48)
     ap.add_argument("--quantize", action="store_true",
                     help="apply tile-group W4A16 quantization (paper §5.1)")
+    ap.add_argument("--ckpt", default="",
+                    help="restore trained params from this checkpoint "
+                         "directory (a params-only tree, the JAX package's "
+                         "format)")
     ap.add_argument("--continuous", action="store_true",
                     help="serve best_of_n and beam_search through the "
                          "slot-based continuous-batching scheduler (else "
@@ -96,6 +106,9 @@ def parse_args(argv=None):
                          "pressure) so requests sharing a system prompt / "
                          "few-shot header skip re-prefilling it; requires "
                          "--paged --continuous")
+    ap.add_argument("--cache-capacity", type=int, default=0,
+                    help="max pool blocks the prefix cache may pin "
+                         "(0 = bounded only by pool pressure)")
     ap.add_argument("--fewshot", type=int, default=0,
                     help="prepend a shared header of N worked examples to "
                          "every task prompt (the cross-request common "
@@ -157,6 +170,13 @@ def parse_args(argv=None):
                     help="smoke: shrink tasks/budget/tokens so the run "
                          "finishes in seconds")
     args = ap.parse_args(argv)
+    if get_config(args.arch).family == "encdec":
+        raise ValueError(
+            f"--arch {args.arch}: an encoder-decoder decodes over its "
+            f"audio frames, and neither the scheduler's requests nor this "
+            f"entry point take frames (as in the JAX package); serve it "
+            f"through DecodeEngine.prefill(tokens, lengths, "
+            f"embeddings=frames), fork and generate")
     if args.dry:
         args.tasks = min(args.tasks, 2)
         args.budget = min(args.budget, 4)
@@ -206,18 +226,25 @@ def spec_of(args) -> TTSSpec:
 
 def build_engine(args) -> tuple:
     """(engine, tokenizer) for parsed ``args``: random params from seed 0
-    on the requested device, optionally W4A16-quantized, cast once to the
-    compute dtype.  With ``--paged`` the pool holds one full-length
-    sequence per row of the widest of the slots, the budget and the beam
-    fan-out (the direct path forks that many rows at once and has no
-    preemption to fall back on); without it each row owns dense cache
-    rows."""
+    (or ``--ckpt``'s) on the requested device, optionally W4A16-quantized,
+    cast once to the compute dtype.  With ``--paged`` the pool holds one
+    full-length sequence per row of the widest of the slots, the budget
+    and the beam fan-out (the direct path forks that many rows at once and
+    has no preemption to fall back on); without it each row owns dense
+    cache rows."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     tok = ByteTokenizer()
     if cfg.vocab_size < tok.vocab_size:
         cfg = cfg.with_(vocab_size=tok.vocab_size)
-    params = api.get_model(cfg).init_params(cfg, seed=0, device=device)
+    if args.ckpt:
+        from repro_torch.checkpoint.checkpointer import Checkpointer
+
+        # a params-only checkpoint, as the JAX entry point restores
+        params, _ = Checkpointer(args.ckpt).restore(
+            api.abstract_params(cfg), device=device)
+    else:
+        params = api.get_model(cfg).init_params(cfg, seed=0, device=device)
     if args.quantize:
         params = quantize_model_params(params)
         print("[serve] weights quantized: tile-group Q4_0 + Q8_0 down-proj")
@@ -252,7 +279,8 @@ def main(argv=None) -> list:
               "the direct path")
     prefix_cache = None
     if args.prefix_cache:
-        prefix_cache = PrefixCache(engine.pool)
+        prefix_cache = PrefixCache(
+            engine.pool, capacity_blocks=args.cache_capacity or None)
     if args.fewshot:
         tasks = T.shared_prefix_dataset(123, args.tasks,
                                         n_shots=args.fewshot)

@@ -9,18 +9,20 @@ device=)``, ``forward``, ``prefill(cache=)`` over dense rows from
   block table, over ``init_paged_cache``;
 * ``mamba2`` (the ``mamba2`` and ``hybrid`` families: Mamba2 and the
   zamba2 shared-attention hybrid): dense rows only, conv/ssm states per
-  row, and ``decode_step(keep=)`` to leave done rows' states unchanged.
+  row, and ``decode_step(keep=)`` to leave done rows' states unchanged;
+* ``whisper`` (the ``encdec`` family): dense rows only, the encoder's
+  frames passed as ``embeddings=`` to ``forward`` / ``prefill``, and
+  ``init_cache(t_enc=)`` sizing the cross K/V rows.
+
+``forward(..., return_aux=True)`` appends the auxiliary loss (an MoE
+transformer's load-balancing term, zero elsewhere), which training adds.
 """
 from __future__ import annotations
 
 from types import ModuleType
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import mamba2, transformer
-
-# families of the JAX package the port does not serve yet, and the slice
-# that ports them
-_LATER = {"encdec": "Whisper (encoder-decoder)"}
+from repro_torch.models import mamba2, transformer, whisper
 
 
 def get_model(cfg: ModelConfig) -> ModuleType:
@@ -28,8 +30,12 @@ def get_model(cfg: ModelConfig) -> ModuleType:
         return transformer
     if cfg.family in mamba2.FAMILIES:
         return mamba2
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"the port does not serve the {cfg.family!r} family yet: it "
-            f"comes with the slice that ports {_LATER[cfg.family]}")
+    if cfg.family == "encdec":
+        return whisper
     raise ValueError(f"unknown model family: {cfg.family}")
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree of ``cfg`` on the ``meta`` device: shapes and
+    dtypes only, no storage (a checkpoint's restore template)."""
+    return get_model(cfg).init_params(cfg, device="meta")

@@ -1,5 +1,5 @@
-"""Model building blocks of the dense GQA decoder, as plain functions over
-parameter dicts of tensors.
+"""Model building blocks of the dense GQA decoder and the Whisper
+encoder-decoder, as plain functions over parameter dicts of tensors.
 
 Layouts match the JAX package's public functions: activations are
 (B, S, H, D), linear weights (in, out), attention heads grouped as
@@ -40,6 +40,15 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (y * p["scale"].float()).to(x.dtype)
 
 
+def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 (population variance), ``scale`` and ``bias``."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float) -> torch.Tensor:
     """Rotary embedding. x: (..., S, H, D); positions: (..., S)."""
@@ -67,8 +76,9 @@ def chunked_attention(q, k, v, *, q_positions, kv_positions,
     q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); positions (B, S).  Scores
     in f32, masked softmax, probabilities cast to v's dtype for P·V with
     f32 accumulation — the JAX package's chunked online softmax reduced
-    to its single-chunk case (prompts here are shorter than one chunk).
-    Returns (B, Sq, Hq, D) in q.dtype."""
+    to its single-chunk case (its chunks are 512 queries by 1024 keys;
+    past them, as over Whisper's 1500 encoder frames, the two differ by
+    f32 rounding only).  Returns (B, Sq, Hq, D) in q.dtype."""
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
@@ -219,11 +229,20 @@ def _plain_paged_decode_attention(q, k_pool, v_pool, table, cache_len,
 
 def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, window: int, cache=None,
-                    cache_len=None, prefix_kv=None, prefix_positions=None):
-    """Attention block.  Returns (out, (k, v)).
+                    cache_len=None, prefix_kv=None, prefix_positions=None,
+                    cross_kv=None, causal: bool = True):
+    """Attention block.  Returns (out, (k, v)), or (out, None) for cross
+    attention.
 
-    - prefill (``cache`` None): attention over x itself; returns the
-      sequence's rope'd (k, v) for the caller to scatter into the pool.
+    - prefill (``cache`` None): attention over x itself (causal unless
+      ``causal=False``, the Whisper encoder's); returns the sequence's
+      rope'd (k, v) for the caller to scatter into the pool.
+    - cross attention (the Whisper decoder): ``cross_kv`` = (k, v) of
+      shape (B, T_enc, Hkv, D), precomputed from the encoder output; only
+      q is projected, with no rope and no cache write.  Without ``cache``
+      every query attends over all T_enc keys (prefill, training); with
+      any ``cache`` (decode) through :func:`decode_attention` at
+      ``cache_len`` = T_enc.
     - partial prefill: additionally ``prefix_kv`` = (k, v) of shape
       (B, P, Hkv, D), the already-rope'd KV of a cached prompt prefix, and
       ``prefix_positions`` (B, P), with invalid slots pushed past every
@@ -246,6 +265,19 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim()
     q = linear(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
+    if cross_kv is not None:
+        k, v = cross_kv
+        T = k.shape[1]
+        if cache is None:
+            kv_pos = torch.arange(T, device=x.device)[None].expand(B, T)
+            o = chunked_attention(q, k, v, q_positions=positions,
+                                  kv_positions=kv_pos, causal=False,
+                                  window=0, softcap=cfg.logit_softcap)
+        else:
+            o = decode_attention(q, k, v, cache_len=torch.full(
+                (B,), T, dtype=torch.int32, device=x.device),
+                softcap=cfg.logit_softcap)
+        return linear(p["wo"], o.reshape(B, S, cfg.n_heads * hd)), None
     k = linear(p["wk"], x).reshape(B, S, cfg.n_kv_heads, hd)
     v = linear(p["wv"], x).reshape(B, S, cfg.n_kv_heads, hd)
     if cfg.rope_theta:
@@ -262,7 +294,7 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                               softcap=cfg.logit_softcap)
     elif cache is None:
         o = chunked_attention(q, k, v, q_positions=positions,
-                              kv_positions=positions, causal=True,
+                              kv_positions=positions, causal=causal,
                               window=window, softcap=cfg.logit_softcap)
     elif "table" not in cache:
         ring = cfg.ring_cache
@@ -303,18 +335,29 @@ def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
     return linear(p["down"], F.silu(linear(p["gate"], x)) * linear(p["up"], x))
 
 
+def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Whisper's FFN: fc1, GELU (the tanh form, ``jax.nn.gelu``'s
+    default), fc2, with biases."""
+    return linear(p["fc2"], F.gelu(linear(p["fc1"], x), approximate="tanh"))
+
+
 def embed(p: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return p["table"].to(dtype)[tokens.long()]
 
 
 def lm_logits(p: dict, x: torch.Tensor, softcap: float = 0.0):
     """Tied-embedding LM head with f32 logits (f32 accumulation, as the
-    JAX package's ``preferred_element_type``)."""
+    JAX package's ``preferred_element_type``).  Under autograd a low
+    precision product runs as the f32 product of the same rounded
+    operands (``mm``'s ``out_dtype`` form has no CPU kernel and no sure
+    backward)."""
     table = p["table"].to(x.dtype)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.dtype == torch.float32:
         logits = x2 @ table.t()
+    elif x2.requires_grad or table.requires_grad:
+        logits = x2.float() @ table.float().t()
     else:
         logits = torch.mm(x2, table.t(), out_dtype=torch.float32)
     logits = logits.reshape(*lead, -1)

@@ -28,9 +28,10 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import param_generator, resolve_device
 from repro_torch.models import layers as L
 
 FAMILIES = ("mamba2", "hybrid")
@@ -65,8 +66,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
         raise ValueError(f"the port's mamba2 module serves the {FAMILIES} "
                          f"families, got {cfg.family!r}")
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = param_generator(dev, seed)
     dtype = getattr(torch, cfg.param_dtype)
     s, di, H, conv_dim = _dims(cfg)
     d = cfg.d_model
@@ -334,23 +334,34 @@ def _head(params, cfg):
     return params["embedding"] if cfg.tie_embeddings else params["lm_head"]
 
 
+def _train_layer(lp, x, cfg):
+    return mamba_layer(lp, x, cfg)[0]
+
+
 def forward(params, tokens, cfg: ModelConfig, *,
             logit_positions: Optional[torch.Tensor] = None,
-            return_kv: bool = False):
+            return_kv: bool = False, return_aux: bool = False):
     """Full-sequence forward.  tokens: (B, S).  Returns (logits, (states,
     kvs)): logits (B, S, V) f32, or (B, V) at ``logit_positions`` (B,);
     with ``return_kv`` the per-layer (conv, ssm) final states and the
     shared block's rope'd (k, v) (B, S, Hkv, D) per application, else
-    empty lists."""
+    empty lists.  ``return_aux`` appends a zero auxiliary loss, as the
+    JAX package returns.  With ``cfg.remat == "full"`` and activations
+    that carry gradients (training), each Mamba2 layer runs under
+    ``torch.utils.checkpoint``."""
     x = L.embed(params["embedding"], tokens, getattr(torch, cfg.dtype))
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
     states, kvs = [], []
+    remat = cfg.remat == "full" and x.requires_grad and not return_kv
     for i, lp in enumerate(params["layers"]):
-        x, st = mamba_layer(lp, x, cfg)
-        if return_kv:
-            states.append(st)
+        if remat:
+            x = checkpoint(_train_layer, lp, x, cfg, use_reentrant=False)
+        else:
+            x, st = mamba_layer(lp, x, cfg)
+            if return_kv:
+                states.append(st)
         if _is_app(cfg, i):
             x, kv = _shared_attn_apply(params["shared_attn"], x, cfg,
                                        positions=positions)
@@ -359,8 +370,10 @@ def forward(params, tokens, cfg: ModelConfig, *,
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if logit_positions is not None:
         x = x[torch.arange(B, device=x.device), logit_positions.long()]
-    return L.lm_logits(_head(params, cfg), x, cfg.logit_softcap), \
-        (states, kvs)
+    logits = L.lm_logits(_head(params, cfg), x, cfg.logit_softcap)
+    if return_aux:
+        return logits, (states, kvs), torch.zeros((), device=x.device)
+    return logits, (states, kvs)
 
 
 def prefill(params, tokens, cfg: ModelConfig, *, lengths, cache: dict,

@@ -21,9 +21,10 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import param_generator, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.moe import init_moe, moe_ffn
 
@@ -50,8 +51,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
         raise ValueError(f"the port's transformer module serves the "
                          f"transformer family, got {cfg.family!r}")
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = param_generator(dev, seed)
     dtype = getattr(torch, cfg.param_dtype)
 
     def dense(i: int, o: int, bias: bool = False) -> dict:
@@ -131,6 +131,9 @@ def pool_layer(pool, layer: int):
 
 def _layer(p, x, cfg, *, positions, window, cache=None, cache_len=None,
            prefix_kv=None, prefix_positions=None):
+    """One layer.  Returns (x, kv, aux): aux is the MoE layer's
+    load-balancing loss, None for a dense layer (serving launches no
+    kernel for it)."""
     h, kv = L.attention_block(
         p["attn"], L.rmsnorm(p["attn_norm"], x, cfg.norm_eps), cfg,
         positions=positions, window=window, cache=cache, cache_len=cache_len,
@@ -138,10 +141,15 @@ def _layer(p, x, cfg, *, positions, window, cache=None, cache_len=None,
     x = x + h
     hn = L.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
     if "moe" in p:
-        h, _ = moe_ffn(p["moe"], hn, cfg)
+        h, aux = moe_ffn(p["moe"], hn, cfg)
     else:
-        h = L.swiglu(p["ffn"], hn)
-    return x + h, kv
+        h, aux = L.swiglu(p["ffn"], hn), None
+    return x + h, kv, aux
+
+
+def _train_layer(p, x, cfg, positions, window):
+    x, _, aux = _layer(p, x, cfg, positions=positions, window=window)
+    return x, aux
 
 
 def _head(params, cfg):
@@ -151,21 +159,27 @@ def _head(params, cfg):
 def forward(params, tokens, cfg: ModelConfig, *,
             logit_positions: Optional[torch.Tensor] = None,
             return_kv: bool = False, prefix: Optional[dict] = None,
-            embeddings: Optional[torch.Tensor] = None):
+            embeddings: Optional[torch.Tensor] = None,
+            return_aux: bool = False):
     """Full-sequence forward.  tokens: (B, S).  Returns (logits, kvs):
     logits (B, S, V) f32, or (B, V) at ``logit_positions`` (B,); kvs as
-    :func:`trunk` returns them."""
-    x, kvs = trunk(params, tokens, cfg, return_kv=return_kv, prefix=prefix,
-                   embeddings=embeddings)
+    :func:`trunk` returns them.  ``return_aux`` appends the summed MoE
+    load-balancing loss of the layers (zero without MoE), which the JAX
+    package's ``forward`` returns and training adds."""
+    x, kvs, aux = trunk(params, tokens, cfg, return_kv=return_kv,
+                        prefix=prefix, embeddings=embeddings,
+                        return_aux=True)
     if logit_positions is not None:
         B = tokens.shape[0]
         x = x[torch.arange(B, device=x.device), logit_positions.long()]
-    return L.lm_logits(_head(params, cfg), x, cfg.logit_softcap), kvs
+    logits = L.lm_logits(_head(params, cfg), x, cfg.logit_softcap)
+    return (logits, kvs, aux) if return_aux else (logits, kvs)
 
 
 def trunk(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
           prefix: Optional[dict] = None,
-          embeddings: Optional[torch.Tensor] = None):
+          embeddings: Optional[torch.Tensor] = None,
+          return_aux: bool = False):
     """The layers and final norm, without the LM head (the reward model
     puts its own head on them).  tokens: (B, S).  Returns (x, kvs): x
     (B, S, d_model) in ``cfg.dtype``; kvs the per-layer rope'd (k, v) of
@@ -181,7 +195,12 @@ def trunk(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
 
     ``embeddings``: optional (B, P, d) modality-stub prefix (VLM patches)
     which, through ``patch_proj``, replaces the embedding of the first P
-    positions; it cannot be combined with a cached ``prefix``."""
+    positions; it cannot be combined with a cached ``prefix``.
+
+    ``return_aux`` appends the layers' summed MoE loss.  With
+    ``cfg.remat == "full"`` and activations that carry gradients
+    (training), each layer runs under ``torch.utils.checkpoint`` (the JAX
+    package's ``jax.checkpoint``)."""
     dtype = getattr(torch, cfg.dtype)
     x = L.embed(params["embedding"], tokens, dtype)
     if embeddings is not None:
@@ -204,13 +223,28 @@ def trunk(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
         prefix_positions = torch.where(parr < offset[:, None], parr,
                                        torch.full_like(parr, P + S))
     kvs = []
+    aux = None
+    remat = cfg.remat == "full" and x.requires_grad and prefix is None \
+        and not return_kv
     for i, (lp, w) in enumerate(zip(params["layers"], layer_windows(cfg))):
-        pkv = None if prefix is None else (prefix["k"][i], prefix["v"][i])
-        x, kv = _layer(lp, x, cfg, positions=positions, window=w,
-                       prefix_kv=pkv, prefix_positions=prefix_positions)
-        if return_kv:
-            kvs.append(kv)
-    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), kvs
+        if remat:
+            x, a = checkpoint(_train_layer, lp, x, cfg, positions, w,
+                              use_reentrant=False)
+        else:
+            pkv = None if prefix is None else (prefix["k"][i],
+                                               prefix["v"][i])
+            x, kv, a = _layer(lp, x, cfg, positions=positions, window=w,
+                              prefix_kv=pkv,
+                              prefix_positions=prefix_positions)
+            if return_kv:
+                kvs.append(kv)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if not return_aux:
+        return x, kvs
+    return x, kvs, (torch.zeros((), device=x.device) if aux is None
+                    else aux)
 
 
 def _scatter_prefill_blocks(pool, kv, table, block_size: int) -> None:
@@ -342,7 +376,7 @@ def decode_step(params, tokens, cache: dict, cache_len, cfg: ModelConfig):
                        "v": pool_layer(cache["v"], layer)}
         if "table" in cache:
             layer_cache["table"] = cache["table"]
-        x, _ = _layer(lp, x, cfg, positions=positions, window=w,
-                      cache=layer_cache, cache_len=cache_len)
+        x, _, _ = _layer(lp, x, cfg, positions=positions, window=w,
+                         cache=layer_cache, cache_len=cache_len)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.lm_logits(_head(params, cfg), x[:, 0], cfg.logit_softcap)

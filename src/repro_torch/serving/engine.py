@@ -83,8 +83,9 @@ class GenState:
     (B,) owned-block counts as host numpy, their KV living in the
     engine's pool; dense states carry ``cache``, the model's dense rows
     (``init_cache``: a transformer's {"k", "v"} of (L, B, max_len, Hkv,
-    D), a Mamba2 model's {"conv", "ssm"[, "attn_k", "attn_v"]}, batch on
-    axis 1 of every leaf), and no table.  The per-row vectors live on the
+    D), a Mamba2 model's {"conv", "ssm"[, "attn_k", "attn_v"]}, a Whisper
+    model's {"k", "v", "cross_k", "cross_v"}, batch on axis 1 of every
+    leaf), and no table.  The per-row vectors live on the
     engine's device."""
 
     table: Optional[np.ndarray]
@@ -172,7 +173,10 @@ class DecodeEngine:
         """tokens: (B, S) right-padded prompts; lengths: (B,) true lengths.
         Allocates the prompts' blocks (host) and scatters their KV in.
         ``embeddings``: a (B, P, d) modality-stub prefix (``patch_stub``
-        configs) replacing the first P positions' token embeddings.
+        configs) replacing the first P positions' token embeddings, or an
+        encoder-decoder's (B, T_enc, d) frames, whose cross K/V the dense
+        rows then hold (``fork``, ``reorder`` and ``merge_rows`` carry
+        them as every other dense leaf).
 
         Partial prefill: ``cached_table`` (B, Wc) block ids covering each
         row's cached prompt prefix plus ``cached_lens`` (B,) cached
@@ -225,8 +229,11 @@ class DecodeEngine:
                                              cached_lens)
         if not self.paged:
             lengths = self._vec(lens_h, torch.int32)
+            # an encoder-decoder's cross K/V rows take the frames' length
+            extra = ({"t_enc": embeddings.shape[1]}
+                     if self.cfg.family == "encdec" else {})
             cache = self.model.init_cache(self.cfg, B, self.max_len,
-                                          device=self.device)
+                                          device=self.device, **extra)
             logits = self.model.prefill(self.params, tokens, self.cfg,
                                         lengths=lengths, cache=cache,
                                         embeddings=embeddings)

@@ -1,10 +1,10 @@
 """The port's registry against the JAX package's, and the transformer
 family's geometries through the port's engines.
 
-Every config of the JAX registry but whisper-base (full and smoke)
-equals the port's field for field, MoE and the Mamba2 / zamba2 SSM
-configs included, and the port's model API serves each of them; the
-encoder-decoder family of a later slice raises.  At smoke size,
+Every config of the JAX registry (full and smoke) equals the port's
+field for field, MoE, the Mamba2 / zamba2 SSM configs and whisper-base
+included, and the port's model API routes each of them; an unknown
+family raises.  At smoke size,
 from the JAX init carried across by ``repro_torch.bridge``: prefill and
 greedy decode logits and tokens through the paged engine over fp and Q8
 pools for gemma3 (5:1 local:global windows), stablelm, qwen2.5-14b,
@@ -51,24 +51,29 @@ def _fields(cfg) -> dict:
 def test_registry_lists_the_transformer_family_field_equal(smoke):
     from repro_torch.models import mamba2
 
-    assert R.list_archs() == [a for a in JR.list_archs()
-                              if a != "whisper-base"]
+    from repro_torch.models import whisper
+
+    assert R.list_archs() == JR.list_archs()
     assert len(TRANSFORMERS) == 9
-    for arch in TRANSFORMERS + SSMS:
+    for arch in TRANSFORMERS + SSMS + ["whisper-base"]:
         want = JR.get_config(arch, smoke=smoke)
         got = R.get_config(arch, smoke=smoke)
         assert _fields(got) == _fields(want), arch
-        assert api.get_model(got) is (TR if arch in TRANSFORMERS
-                                      else mamba2)
+        assert api.get_model(got) is (
+            TR if arch in TRANSFORMERS else
+            whisper if arch == "whisper-base" else mamba2)
 
 
 def test_later_families_raise_naming_their_slice():
-    with pytest.raises(NotImplementedError, match="Whisper"):
-        api.get_model(ModelConfig(name="x", family="encdec"))
+    """Every family of the JAX package has its module now: encdec routes
+    to Whisper; an unknown family and an unknown arch still raise."""
+    from repro_torch.models import whisper
+
+    assert api.get_model(ModelConfig(name="x", family="encdec")) is whisper
     with pytest.raises(ValueError, match="unknown model family"):
         api.get_model(ModelConfig(name="x", family="rnn"))
     with pytest.raises(KeyError):
-        R.get_config("whisper-base")
+        R.get_config("whisper-large")
 
 
 def test_param_count_of_olmoe_matches_the_reference():
@@ -181,9 +186,15 @@ def test_cpu_serve_takes_every_listed_arch(arch, capsys):
     """``serve.py --arch`` for each listed config at smoke size on the CPU
     (continuous Best-of-N on a Q8 pool; the SSM families, which have no
     paged layout, on dense rows): every request completes and the pool
-    drains."""
+    drains.  whisper-base is refused before anything is built: neither
+    the scheduler's requests nor the entry point take its frames."""
     from repro_torch.launch import serve
 
+    if arch == "whisper-base":
+        with pytest.raises(ValueError, match="frames"):
+            serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                        "--continuous", "--dry"])
+        return
     pool = [] if arch in SSMS else ["--paged", "--kv-quant", "q8"]
     rows = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                        "--continuous", *pool, "--dry"])

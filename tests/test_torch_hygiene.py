@@ -61,8 +61,9 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_cuda):
     from repro_torch import bridge
     from repro_torch.configs.registry import get_config
     from repro_torch.device import resolve_device
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import transformer as T
+    from repro_torch.models import whisper
 
     cfg = get_config("qwen2.5-1.5b", smoke=True)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -74,6 +75,10 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--arch", "qwen2.5-1.5b", "--smoke", "--continuous",
                     "--paged", "--dry"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        whisper.init_params(get_config("whisper-base", smoke=True))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--arch", "qwen2.5-1.5b", "--smoke", "--steps", "1"])
     # asked for the CPU, they run there
     assert T.init_params(cfg, device="cpu")["embedding"]["table"].device \
         == torch.device("cpu")
