@@ -89,7 +89,21 @@ Phases, one JSON line each:
    peak bytes), the trained params saved as a checkpoint and restored
    (bytes and seconds), ``serve --ckpt`` Best-of-8 from it (W4A16, Q8 KV,
    ``train/serve-ckpt``), and a 4-layer run resumed after a relaunch at
-   step 4 (all under a temp dir in ``build/``, removed);
+   step 4 (all under a temp dir in ``build/``, removed).  Then ``dist``,
+   the distributed layer on ranks that share the card over ``gloo``
+   (``torch.distributed.run``; every collective through the host): the
+   same ``launch/train.py`` run (3 steps of 8 x 128, its depth cut to
+   ``DIST_TRAIN_LAYERS``) with ``--mesh 2x2`` against one rank, each
+   step's loss within ``TRAIN_RTOL`` and each rank's peak bytes; then 2
+   ranks: qwen2.5-1.5b W4A16 at its published width and depth decoding
+   sequence-parallel over a dense bf16 cache split over "data" (8 rows,
+   32 steps, teacher-forced with a one-rank decode's tokens, held to it
+   by the ``SPEC_GAP`` rule, exactly 168 K3 launches a step on each
+   rank: ``dist/seqpar``), ``distributed_sample`` over the 151,936-wide
+   vocab (greedy = argmax, ties included), olmoe-1b-7b (2 layers) under
+   a 1 x 2 mesh with tp against no mesh, ``compressed_psum`` of 64 MB
+   against ``psum``, and the 2 x 2 checkpoint restored onto 1 x 2 and
+   onto one rank bit for bit;
 6. ``observe``: the serve again through ``--trace`` and ``--profile``
    (the request tracer, the kernel profiler with its numerics canary at
    rate 0.25), Best-of-8 over 2 tasks: Q8/exact off, on, off, on, then on
@@ -136,6 +150,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -2103,20 +2118,12 @@ def train_phase(dev: str = "cuda") -> dict:
              launches=counts)
         shutil.rmtree(tmp / "params")
         # the resume chain at 4 layers
-        orig = train.get_config
-
-        def four_layers(arch, smoke=False):
-            return orig(arch, smoke=smoke).with_(n_layers=CHAIN_LAYERS)
-
-        train.get_config = four_layers
-        try:
-            chain = ["--ckpt-dir", str(tmp / "chain")]
-            t0 = time.perf_counter()
-            first = train.main(CHAIN_ARGS + chain + ["--steps", "4"] + on)
-            second = train.main(CHAIN_ARGS + chain + ["--steps", "6"] + on)
-            chain_s = time.perf_counter() - t0
-        finally:
-            train.get_config = orig
+        chain = ["--ckpt-dir", str(tmp / "chain"), "--n-layers",
+                 str(CHAIN_LAYERS)]
+        t0 = time.perf_counter()
+        first = train.main(CHAIN_ARGS + chain + ["--steps", "4"] + on)
+        second = train.main(CHAIN_ARGS + chain + ["--steps", "6"] + on)
+        chain_s = time.perf_counter() - t0
         if first["start"] != 0 or second["start"] != 4 or \
                 len(second["losses"]) != 2 or \
                 int(second["state"]["step"]) != 6 or not all(
@@ -2134,6 +2141,514 @@ def train_phase(dev: str = "cuda") -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     return {"counts": counts, "shapes": shapes, "kv_shapes": {},
             "kv_geom": (cfg.n_kv_heads, cfg.resolved_head_dim())}
+
+
+# ---------------------------------------------------------------------------
+# the distributed layer: ranks that share the one card, over gloo
+# ---------------------------------------------------------------------------
+
+# sequence-parallel decode: qwen2.5-1.5b W4A16 at its published width and
+# depth, 2 ranks, the dense bf16 cache's 256 slots split over "data"
+DIST_ARCH = "qwen2.5-1.5b"
+DIST_ROWS, DIST_PROMPT, DIST_MAX_LEN, DIST_STEPS = 8, 64, 256, 32
+# sharded training: launch/train.py under torch.distributed.run, 3 steps of
+# 8 x 128, on a 2 x 2 mesh against the same command without --mesh
+DIST_MESH = "2x2"
+# depth of both training runs: the 2 x 2 run's collectives go through the
+# host (gloo), which bounds its step time (PERF.md); widths untouched
+DIST_TRAIN_LAYERS = 4
+DIST_TRAIN_ARGS = ["--arch", DIST_ARCH, "--steps", "3", "--batch", "8",
+                   "--seq", "128", "--log-every", "1"]
+TRAIN_RTOL = 2e-3
+# olmoe-1b-7b at its published widths, 2 of its 16 layers (two ranks' f32
+# inits on one card), forward under a 1 x 2 mesh with tp; the bf16
+# tolerance: each output's largest difference over its largest magnitude
+DIST_MOE_LAYERS = 2
+BF16_TOL = 2e-2
+# a token may route differently under the mesh only where the reference's
+# k-th and k+1-th router probabilities lie this close
+ROUTE_GAP = 1e-2
+# compressed_psum of a 64 MB f32 tree over 2 ranks, JAX's bound
+DIST_COMP_FLOATS = 16 * 2 ** 20
+COMP_RTOL = 2e-2
+DIST_TIMEOUT = 420  # seconds per launch of ranks
+
+
+def _torchrun(nproc: int, args: list, timeout: int = DIST_TIMEOUT) -> str:
+    """``python -m torch.distributed.run --standalone`` with ``nproc``
+    ranks, its output returned; a non-zero exit or the timeout (the whole
+    process group killed) raises."""
+    import os
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc)] + args
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"dist: {args[:3]} timed out after {timeout} "
+                             f"s:\n{out[-4000:]}")
+    if proc.returncode != 0:
+        raise AssertionError(f"dist: {args[:3]} exited {proc.returncode}:"
+                             f"\n{out[-6000:]}")
+    return out
+
+
+def _worker_device():
+    import os
+
+    import torch
+
+    dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))
+                       % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def _dist_seqpar(dev) -> dict:
+    """Sequence-parallel greedy decode on a (2, 1) mesh, kv_seq_axis
+    "data", teacher-forced with a one-rank decode's tokens (each rank
+    runs that reference on the whole cache first).  A step's greedy token
+    may differ from the reference's only where the reference's top-2
+    logit gap is under ``SPEC_GAP``; K3 launches exactly 168 a step."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import ParallelContext
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as TM
+    from repro_torch.quant.qlinear import cast_params, quantize_model_params
+    from repro_torch.serving import seq_parallel as SP
+
+    cfg = get_config(DIST_ARCH)
+    params = cast_params(quantize_model_params(
+        TM.init_params(cfg, seed=0, device=dev)), getattr(torch, cfg.dtype))
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(7)
+    prompts = torch.randint(3, cfg.vocab_size, (DIST_ROWS, DIST_PROMPT),
+                            generator=gen).to(dev)
+    lens = torch.full((DIST_ROWS,), DIST_PROMPT, dtype=torch.int32,
+                      device=dev)
+    par = ParallelContext(mesh=make_host_mesh(2, 1, device_type="cpu"),
+                          kv_seq_axis="data", fsdp=False)
+    with torch.no_grad():
+        cache = TM.init_cache(cfg, DIST_ROWS, DIST_MAX_LEN, device=dev)
+        first = TM.prefill(params, prompts, cfg, lengths=lens, cache=cache)
+        local = SP.shard_cache(cache, par, DIST_ROWS)
+        tok, ref_tok, ref_lg = torch.argmax(first, -1), [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(DIST_STEPS):
+            lg = TM.decode_step(params, tok[:, None].int(), cache, lens + i + 1,
+                                cfg)
+            ref_tok.append(tok)
+            ref_lg.append(lg)
+            tok = torch.argmax(lg, -1)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        del cache
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sp_lg = [TM.decode_step(params, ref_tok[i][:, None].int(), local,
+                                lens + i + 1, cfg, par)
+                 for i in range(DIST_STEPS)]
+        torch.cuda.synchronize()
+        sp_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        shapes = ops.gemm_launches_by_shape()
+    max_diff, flips, worst_gap = 0.0, 0, 0.0
+    for a, b in zip(sp_lg, ref_lg):
+        max_diff = max(max_diff, float((a - b).abs().max()))
+        top2 = torch.topk(b, 2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        differ = torch.argmax(a, -1) != torch.argmax(b, -1)
+        if bool(differ.any()):
+            flips += int(differ.sum())
+            worst_gap = max(worst_gap, float(gap[differ].max()))
+    want = sum(gemm_layout(cfg).values()) * DIST_STEPS
+    if counts["lut_dequant_gemm"] != want or any(
+            n for k, n in counts.items() if k != "lut_dequant_gemm"):
+        raise AssertionError(f"dist/seqpar: launches {counts}, want {want} "
+                             f"K3 and nothing else")
+    if worst_gap > SPEC_GAP:
+        raise AssertionError(f"dist/seqpar: a token differs where the "
+                             f"reference's top-2 gap is {worst_gap}")
+    return {"layers": cfg.n_layers, "rows": DIST_ROWS,
+            "prompt": DIST_PROMPT, "max_len": DIST_MAX_LEN,
+            "local_slots": DIST_MAX_LEN // 2, "steps": DIST_STEPS,
+            "max_logit_diff": max_diff, "token_flips": flips,
+            "worst_flip_gap": worst_gap, "k3_launches": counts[
+                "lut_dequant_gemm"], "k3_per_step": counts[
+                "lut_dequant_gemm"] / DIST_STEPS, "counts": counts,
+            "shapes": [[list(k), n] for k, n in shapes.items()],
+            "step_ms": sp_s / DIST_STEPS * 1e3,
+            "ref_step_ms": ref_s / DIST_STEPS * 1e3}
+
+
+def _dist_sample(dev) -> dict:
+    """``distributed_sample`` over qwen2.5-1.5b's 151,936-wide vocab on a
+    (1, 2) mesh: greedy equals ``argmax``, the tie rows included (the
+    reference test's rows inside one shard, and the same ties across
+    shards); Gumbel tokens are valid ids."""
+    import torch
+
+    from repro_torch.distributed.sharding import ParallelContext
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving.sampler import SamplerConfig, distributed_sample
+
+    V = 151936
+    par = ParallelContext(mesh=make_host_mesh(1, 2, device_type="cpu"))
+    vps = V // 2
+    gen = torch.Generator(device=dev).manual_seed(11)
+    logits = torch.randn(10, V, generator=gen, device=dev)
+    ties = ([7, 23, 55], [0, 63], [40, 41], [7, vps + 7, V - 1],
+            [0, V - 1], [vps + 40, vps + 41])
+    for r, cols in enumerate(ties):
+        logits[r] = -5.0
+        logits[r, cols] = float(r % 3 + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok = distributed_sample(logits, 0, SamplerConfig(greedy=True), par)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    want = torch.argmax(logits, -1).int()
+    gum = distributed_sample(logits, 1, SamplerConfig(temperature=1.0), par)
+    if not torch.equal(tok, want) or tok[:6].tolist() != [
+            7, 0, 40, 7, 0, vps + 40] or not bool(
+                ((gum >= 0) & (gum < V)).all()):
+        raise AssertionError(f"dist/sample: {tok.tolist()} vs "
+                             f"{want.tolist()}; gumbel {gum.tolist()}")
+    return {"vocab": V, "rows": 10, "greedy_ms": ms,
+            "tie_rows": tok[:6].tolist()}
+
+
+def _dist_moe(dev) -> dict:
+    """olmoe-1b-7b (published widths, 2 layers, f32 masters, bf16
+    compute) under a (1, 2) mesh with tp against no mesh.  Layer 0's MoE
+    on one input: the same routing, aux equal, y within ``BF16_TOL``.  The
+    whole forward: each call's routing recorded on both sides; a token may
+    route differently only at a near-tie of the reference's router (its
+    k-th and k+1-th probabilities within ``ROUTE_GAP``), and every
+    position before a row's first such token (which causal attention
+    keeps from it) has logits within ``BF16_TOL``."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import ParallelContext
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as TM
+
+    cfg = get_config(MOE_ARCH).with_(n_layers=DIST_MOE_LAYERS)
+    k = cfg.moe.top_k
+    params = TM.init_params(cfg, seed=0, device=dev)
+    par = ParallelContext(mesh=make_host_mesh(1, 2, device_type="cpu"))
+    gen = torch.Generator().manual_seed(5)
+    B, S = 2, 64
+    tokens = torch.randint(3, cfg.vocab_size, (B, S), generator=gen).to(dev)
+    hn = torch.randn(B, S, cfg.d_model, generator=gen).to(
+        device=dev, dtype=getattr(torch, cfg.dtype))
+    calls: list = []
+    orig = moe.route
+
+    def recording(logits, m):
+        out = orig(logits, m)
+        top = torch.topk(torch.softmax(logits.float(), -1), k + 1).values
+        calls.append((torch.sort(out[1], -1).values, top[:, k - 1] - top[:, k]))
+        return out
+
+    moe.route = recording
+    try:
+        with torch.no_grad():
+            y0, a0 = moe.moe_ffn(params["layers"][0]["moe"], hn, cfg)
+            y1, a1 = moe.moe_ffn(params["layers"][0]["moe"], hn, cfg, par)
+            l0, _ = TM.forward(params, tokens, cfg)
+            l1, _ = TM.forward(params, tokens, cfg, par=par)
+    finally:
+        moe.route = orig
+    same_route = torch.equal(calls[0][0], calls[1][0])
+    ref, got = calls[2:2 + cfg.n_layers], calls[2 + cfg.n_layers:]
+    first = [S] * B
+    flips, worst_gap = 0, 0.0
+    for (ids0, gap), (ids1, _) in zip(ref, got):
+        differ = (ids0 != ids1).any(-1)
+        flips += int(differ.sum())
+        for t in torch.nonzero(differ)[:, 0].tolist():
+            first[t // S] = min(first[t // S], t % S)
+            worst_gap = max(worst_gap, float(gap[t]))
+    scale = float(l0.abs().max())
+    kept = max(float((l1[b, :first[b]] - l0[b, :first[b]]).abs().max())
+               if first[b] else 0.0 for b in range(B)) / scale
+    rel = {"y": float((y1 - y0).abs().max() / y0.abs().max()),
+           "logits_before_first_flip": kept,
+           "logits_all": float((l1 - l0).abs().max()) / scale}
+    aux = abs(float(a1) - float(a0))
+    if not same_route or aux > 1e-6 or rel["y"] > BF16_TOL or \
+            kept > BF16_TOL or worst_gap > ROUTE_GAP or min(first) == 0:
+        raise AssertionError(f"dist/moe: same routing {same_route}, {rel}, "
+                             f"aux diff {aux}, flips {flips} (gap "
+                             f"{worst_gap}), first flips {first}")
+    return {"layers": cfg.n_layers, "experts": cfg.moe.n_experts,
+            "expert_d_ff": cfg.moe.expert_d_ff, "tokens": B * S,
+            "rel_diff": rel, "aux_diff": aux, "tol": BF16_TOL,
+            "route_flips": flips, "worst_flip_gap": worst_gap,
+            "positions_compared": sum(first)}
+
+
+def _dist_compression(dev) -> dict:
+    """``compressed_psum`` of a 64 MB f32 tree (each rank its own values)
+    over 2 ranks against ``psum``: the largest difference over the
+    largest sum within ``COMP_RTOL``; each timed once after a warm-up,
+    and each one's bytes per rank from the shapes."""
+    import torch
+
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.compression import compressed_psum
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(2, 1, device_type="cpu")
+    gen = torch.Generator(device=dev).manual_seed(100 + C.axis_index(
+        "data", mesh))
+    half = DIST_COMP_FLOATS // 2
+    tree = {"a": torch.randn(half, generator=gen, device=dev),
+            "b": torch.randn(half // 2048, 2048, generator=gen, device=dev)}
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    want, plain_ms = timed(lambda: {k: C.psum(v, "data", mesh)
+                                    for k, v in tree.items()})
+    got, comp_ms = timed(lambda: compressed_psum(tree, mesh, "data"))
+    rel = max(float((got[k] - want[k]).abs().max() / want[k].abs().max())
+              for k in tree)
+    if rel > COMP_RTOL:
+        raise AssertionError(f"dist/compression: relative error {rel}")
+    # bytes a rank sends under ring algorithms: an all-reduce; an f32
+    # reduce-scatter, an int8 all-gather and n f32 scales
+    n, size = 2, DIST_COMP_FLOATS * 4
+    return {"floats": DIST_COMP_FLOATS, "rel_err": rel, "tol": COMP_RTOL,
+            "plain_ms": plain_ms, "compressed_ms": comp_ms,
+            "plain_ring_bytes": 2 * (n - 1) / n * size,
+            "compressed_ring_bytes": (n - 1) / n * (size + size / 4)
+            + 4 * (n - 1)}
+
+
+def _dist_elastic(dev, out_dir: str, n_layers: int) -> dict:
+    """The 2 x 2 run's checkpoint restored onto a (1, 2) mesh and onto one
+    rank, both on the card: every (1, 2) block bit-equal to its part of
+    the one-rank state, and the 2 x 2 blocks cut from that state hashing
+    to the digests the 2 x 2 ranks printed of their trained state after
+    their save (this rank checks the 2 x 2 ranks r with r % 2 == its own
+    rank)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree as T
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.elastic import elastic_restore
+    from repro_torch.distributed.sharding import (AbstractMesh,
+                                                  ParallelContext,
+                                                  param_specs, shard_of,
+                                                  stack_layers)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.train.loop import state_specs
+    from repro_torch.train.optimizer import init_opt_state
+
+    cfg = get_config(DIST_ARCH).with_(n_layers=n_layers)
+    abstract = stack_layers(api.abstract_params(cfg))
+    template = {"params": abstract, "opt": init_opt_state(abstract),
+                "step": torch.zeros((), dtype=torch.int32, device="meta")}
+    par = ParallelContext(mesh=make_host_mesh(1, 2, device_type="cpu"))
+    ck = Checkpointer(str(Path(out_dir) / "ckpt"))
+    t0 = time.perf_counter()
+    blocks, step = elastic_restore(ck, template, par, device=dev)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    whole, one_step = elastic_restore(ck, template, ParallelContext(),
+                                      device=dev)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    specs = param_specs(template, par)
+    bad, n, nbytes = [], 0, 0
+    flat_b, _ = T.flatten(blocks)
+    flat_w, _ = T.flatten(whole)
+    flat_s = [s for _, s in _spec_leaves(specs)]
+    for i, (b, w, s) in enumerate(zip(flat_b, flat_w, flat_s)):
+        n += 1
+        nbytes += b.numel() * b.element_size()
+        if not (b.is_cuda and w.is_cuda and torch.equal(b, shard_of(w, s,
+                                                                    par))):
+            bad.append(i)
+    del blocks
+    # the 2 x 2 ranks' blocks: rank r at (r // 2, r % 2) of (data, model)
+    digests = json.loads((Path(out_dir) / "digests.json").read_text())
+    par22 = ParallelContext(mesh=AbstractMesh((2, 2), ("data", "model")))
+    specs22 = state_specs(param_specs(abstract, par22))
+    checked = {}
+    for r in range(dist.get_rank(), 4, 2):
+        coord = {"data": r // 2, "model": r % 2}
+        cut = T.unflatten(T.flatten(whole)[1], [
+            shard_of(w, s, par22, coord=coord) for w, (_, s) in zip(
+                T.flatten(whole)[0], _spec_leaves(specs22))])
+        checked[r] = T.digest(cut) == digests[str(r)]
+    if bad or step != 3 or one_step != 3 or not all(checked.values()):
+        raise AssertionError(f"dist/elastic: steps {step} {one_step}, "
+                             f"leaves {bad} differ, 2 x 2 digests "
+                             f"{checked}")
+    return {"step": step, "leaves": n, "block_bytes": nbytes,
+            "restore_mesh_s": mesh_s, "restore_one_s": one_s,
+            "digests_equal": sorted(checked)}
+
+
+def _spec_leaves(tree, path=()):
+    """(path, spec) in the sorted-key order of ``tree.flatten``."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _spec_leaves(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def dist_worker(out_dir: str) -> int:
+    """One rank of the ``dist`` phase's worker group (2 ranks under
+    ``torch.distributed.run``, ``gloo``, both on the one card): writes
+    its results to ``out_dir/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed
+
+    rank, _ = init_distributed("gloo")
+    dev = _worker_device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {"rank": rank}
+    for name, fn in (("seqpar", _dist_seqpar), ("sample", _dist_sample),
+                     ("moe", _dist_moe),
+                     ("compression", _dist_compression)):
+        res[name] = fn(dev)
+        torch.cuda.empty_cache()
+    with open(Path(out_dir) / "layers.txt") as f:
+        n_layers = int(f.read())
+    res["elastic"] = _dist_elastic(dev, out_dir, n_layers)
+    res["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def dist_phase(dev: str = "cuda", train_layers: int = 0) -> dict:
+    """The distributed layer on ranks that share the card over ``gloo``
+    (NCCL refuses two ranks on one device; every collective goes through
+    the host, so no time here says anything about NVLink or NCCL).
+
+    1. ``launch/train.py`` one rank in this process, then ``--mesh 2x2``
+       under ``torch.distributed.run`` (4 ranks, ``--backend gloo``, a
+       checkpoint at the end): each step's loss within ``TRAIN_RTOL`` of
+       the one rank's, each rank's peak bytes beside the one rank's;
+       ``train_layers`` cuts the depth of both (0: the config's);
+    2. a worker group of 2 ranks (this script with ``--dist-worker``):
+       sequence-parallel decode, ``distributed_sample``, the MoE's
+       sharded branch, ``compressed_psum`` and the elastic restore of the
+       2 x 2 checkpoint, held against the digests its ranks printed of
+       their trained state (``_dist_*``).
+    Returns the sequence-parallel run's {"counts", "shapes", ...} (rank
+    0's; every rank's K3 count is checked)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import train
+
+    layers = ["--n-layers", str(train_layers)] if train_layers else []
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="dist_", dir=ROOT / "build"))
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        one = train.main(DIST_TRAIN_ARGS + layers)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        one_peak = torch.cuda.max_memory_allocated()
+        n_layers = one["cfg"].n_layers
+        one_losses = one["losses"]
+        del one
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out = _torchrun(4, ["-m", "repro_torch.launch.train", "--mesh",
+                            DIST_MESH, "--backend", "gloo", "--ckpt-dir",
+                            str(tmp / "ckpt")] + DIST_TRAIN_ARGS + layers)
+        mesh_s = time.perf_counter() - t0
+        losses = [float(line.split()[3]) for line in out.splitlines()
+                  if line.startswith("step ")]
+        # the ranks' lines may interleave on one line of the output
+        peaks = {int(r): int(n) for r, n in re.findall(
+            r"\[train\] rank (\d+) peak device bytes (\d+)", out)}
+        digests = dict(re.findall(
+            r"\[train\] rank (\d+) state sha256 ([0-9a-f]{64})", out))
+        step_s = re.search(r"'step_s': \[([^\]]*)\]", out)
+        step_s = [float(x) for x in step_s.group(1).split(",")] \
+            if step_s else []
+        save_s = re.search(r"saved in ([\d.]+) s", out)
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, one_losses)]
+        if len(losses) != len(one_losses) or len(peaks) != 4 or \
+                len(digests) != 4 or max(rel) > TRAIN_RTOL:
+            raise AssertionError(f"dist/train: {losses} vs {one_losses}, "
+                                 f"peaks {peaks}:\n{out[-3000:]}")
+        (tmp / "layers.txt").write_text(str(n_layers))
+        (tmp / "digests.json").write_text(json.dumps(digests))
+        t0 = time.perf_counter()
+        _torchrun(2, [str(ROOT / "chip_smoke.py"), "--dist-worker",
+                      str(tmp)])
+        worker_s = time.perf_counter() - t0
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+                 for r in range(2)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    sp = [r["seqpar"] for r in ranks]
+    emit("dist", backend="gloo", ranks_share="cuda:0",
+         train={"mesh": DIST_MESH, "layers": n_layers,
+                "args": DIST_TRAIN_ARGS, "losses": losses,
+                "one_rank_losses": one_losses, "rel_diff": rel,
+                "tol": TRAIN_RTOL, "rank_peak_bytes": peaks,
+                "one_rank_peak_bytes": one_peak, "mesh_wall_s": mesh_s,
+                "mesh_step_s": step_s,
+                "mesh_ckpt_save_s": float(save_s.group(1)) if save_s
+                else None,
+                "one_rank_wall_s": one_s},
+         seqpar={k: v for k, v in sp[0].items()
+                 if k not in ("counts", "shapes")},
+         seqpar_k3_per_rank=[s["k3_launches"] for s in sp],
+         seqpar_step_ms_per_rank=[s["step_ms"] for s in sp],
+         sample=ranks[0]["sample"], moe=ranks[0]["moe"],
+         compression=ranks[0]["compression"],
+         elastic=[r["elastic"] for r in ranks],
+         worker_peak_bytes=[r["peak_device_bytes"] for r in ranks],
+         worker_wall_s=worker_s)
+    cfg_kv = sp[0]
+    return {"counts": cfg_kv["counts"],
+            "shapes": {tuple(k): n for k, n in cfg_kv["shapes"]},
+            "kv_shapes": {}, "kv_geom": (2, 128)}
 
 
 # ---------------------------------------------------------------------------
@@ -2583,6 +3098,7 @@ def main() -> int:
     spec_parity(spec, spec.pop("eos_id"))
     runs["encdec/whisper"] = whisper_run()
     runs["train/serve-ckpt"] = train_phase()
+    runs["dist/seqpar"] = dist_phase(train_layers=DIST_TRAIN_LAYERS)
     observe_runs()
     # K3 and K4 at the shapes the serve runs launched them with: K3's M on
     # the north-star path (8 decode slots, a Best-of-N group's padded
@@ -2620,4 +3136,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(sys.argv[2]))
     sys.exit(main())

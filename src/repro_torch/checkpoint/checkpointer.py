@@ -134,11 +134,15 @@ class Checkpointer:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     # -- restore -------------------------------------------------------------
-    def restore(self, template, step: Optional[int] = None, *, device=None):
+    def restore(self, template, step: Optional[int] = None, *, device=None,
+                take=None):
         """Restore into the structure, shapes and dtypes of ``template``
         (a tree of tensors; ``meta`` tensors will do).  Each leaf lands on
         its template leaf's device, or for a ``meta`` template on
-        ``device`` (CUDA unless asked otherwise).  Returns (tree, step)."""
+        ``device`` (CUDA unless asked otherwise).  ``take(path, tensor)``,
+        if given, maps each leaf read (the global array, on the host)
+        before it moves there: the elastic restore takes a rank's block
+        (the JAX package's ``shardings=``).  Returns (tree, step)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -168,8 +172,10 @@ class Checkpointer:
             if dev.type == "meta":
                 meta_dev = meta_dev or resolve_device(device)
                 dev = meta_dev
-            t = _from_host(a, rec["dtype"], path).to(device=dev,
-                                                     dtype=ref.dtype)
+            t = _from_host(a, rec["dtype"], path)
+            if take is not None:
+                t = take(path, t)
+            t = t.to(device=dev, dtype=ref.dtype)
             for part, value in zip(parts, t.unbind(0) if stacked else [t]):
                 restored[id(part)] = value
         leaves, spec = T.flatten(template)

@@ -148,6 +148,32 @@ def decode_attention(q, k_cache, v_cache, *, cache_len, window: int = 0,
     return o.reshape(B, 1, Hq, D).to(q.dtype)
 
 
+def decode_attention_partial(q, k_cache, v_cache, *, valid,
+                             softcap: float = 0.0):
+    """One shard's partial decode attention for a sequence-sharded KV
+    cache.  q: (B, 1, Hq, D); caches: the shard's (B, S_loc, Hkv, D);
+    valid: (B, S_loc) bool.  Returns (o unnormalized f32 (B, 1, Hq, D),
+    m (B, Hq), l (B, Hq)) for the distributed safe-softmax merge:
+      m* = max_i m_i;  l* = sum_i l_i e^{m_i-m*};  o* = sum_i o_i e^{m_i-m*} / l*.
+    A shard with no valid slot gives m = NEG_INF and l = o = 0."""
+    B, _, Hq, D = q.shape
+    Hkv = k_cache.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Hkv, G, D).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float()) * (
+        1.0 / math.sqrt(D))
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    mask = valid[:, None, None]
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype).float(),
+                     v_cache.float())
+    return o.reshape(B, 1, Hq, D), m.reshape(B, Hq), l.reshape(B, Hq)
+
+
 PAGED_ATTN_IMPLS = ("exact", "lut")
 # the JAX package's "xla" branch: table gather, the pool's plain dequant,
 # f32 softmax in decode_attention.  Selectable only by name through

@@ -404,7 +404,7 @@ def prefill(params, tokens, cfg: ModelConfig, *, lengths, cache: dict,
 
 
 def decode_step(params, tokens, cache: dict, cache_len, cfg: ModelConfig,
-                *, keep: Optional[torch.Tensor] = None):
+                par=None, *, keep: Optional[torch.Tensor] = None):
     """One decode step.  tokens: (B, 1); cache: the dense rows of
     :func:`prefill`; cache_len: (B,) int32 length *after* this token.
     Writes the new conv/ssm states and the shared block's K/V (at slot
@@ -414,7 +414,14 @@ def decode_step(params, tokens, cache: dict, cache_len, cfg: ModelConfig,
     ``keep``: (B,) bool rows whose conv/ssm states come out unchanged
     (the engine's done rows, which the JAX engine restores by ``where``
     after its step; their attention K/V write goes to the slot their
-    ``cache_len`` names, ``max_len - 1`` for a done row)."""
+    ``cache_len`` names, ``max_len - 1`` for a done row).
+
+    ``par`` with a ``kv_seq_axis``: the shared block attends over this
+    rank's block of ``attn_k`` / ``attn_v`` (``seq_parallel.shard_cache``)
+    through the sequence-parallel layer with window 0; the rows, the
+    conv / ssm states and the logits are global, as in the JAX
+    package."""
+    seq_par = par is not None and par.kv_seq_axis is not None
     x = L.embed(params["embedding"], tokens, getattr(torch, cfg.dtype))
     positions = (cache_len - 1)[:, None]
     for i, lp in enumerate(params["layers"]):
@@ -427,6 +434,15 @@ def decode_step(params, tokens, cache: dict, cache_len, cfg: ModelConfig,
         ssm.copy_(new_ssm)
         if _is_app(cfg, i):
             app = i // cfg.hybrid_attn_every
+            if seq_par:
+                from repro_torch.serving.seq_parallel import \
+                    seq_parallel_decode_layer
+                x, _, _ = seq_parallel_decode_layer(
+                    params["shared_attn"], x, cfg, par,
+                    cache_k=cache["attn_k"][app],
+                    cache_v=cache["attn_v"][app], cache_len=cache_len,
+                    window=0)
+                continue
             x, _ = _shared_attn_apply(
                 params["shared_attn"], x, cfg, positions=positions,
                 cache={"k": cache["attn_k"][app], "v": cache["attn_v"][app]},

@@ -11,8 +11,15 @@ and idle rows exactly as the JAX engine does.
 The experts are dense batched products (``torch.matmul``), as the JAX
 package computes them as einsums outside any Pallas kernel.  Quantized
 expert stacks are dequantized to f32 and cast to the activation dtype at
-every call.  There is no sharded branch (the JAX package's ``shard_map``
-path waits for the port's distributed layer).
+every call.
+
+Under a mesh (``par``) the layer is the JAX package's ``shard_map``
+branch written out: tokens split over ``par.batch_axes_for(B)`` and
+routed within each shard (the router replicated), the experts' ff
+sharded over ``model`` under ``tp`` with one ``psum`` over ``model``
+after the down product, ``aux`` averaged over every axis, and the body
+under ``torch.utils.checkpoint`` when it carries grads (the reference's
+``jax.checkpoint``: the (E, C, d) buffers are recomputed in backward).
 """
 from __future__ import annotations
 
@@ -20,8 +27,12 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.sharding import (ParallelContext, axes_of,
+                                              gather_leaf, shard_of)
 
 
 def init_moe(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> dict:
@@ -88,11 +99,14 @@ def dispatch_slots(ids: torch.Tensor, m: MoEConfig):
 
 def dispatch_compute_combine(x: torch.Tensor, weights: torch.Tensor,
                              ids: torch.Tensor, experts: dict,
-                             m: MoEConfig) -> torch.Tensor:
+                             m: MoEConfig, axis_model=None,
+                             mesh=None) -> torch.Tensor:
     """x: (T, d); experts gate/up (E, d, f), down (E, f, d) in x's dtype.
     Returns (T, d) in x's dtype: SiLU(gate) * up then down per expert
     over its (C, d) buffer, and each token's bf16 weighted sum over its k
-    picks (a dropped pick adds zero)."""
+    picks (a dropped pick adds zero).  ``axis_model``: the experts hold
+    this rank's ff block, and the down products are summed over that
+    mesh axis before the combine."""
     T, d = x.shape
     E, k = m.n_experts, m.top_k
     token_slot, C = dispatch_slots(ids, m)
@@ -104,6 +118,8 @@ def dispatch_compute_combine(x: torch.Tensor, weights: torch.Tensor,
     h = F.silu(torch.matmul(xe, experts["gate"])) * torch.matmul(
         xe, experts["up"])
     ye = torch.matmul(h, experts["down"])
+    if axis_model is not None:
+        ye = coll.psum(ye, axis_model, mesh)  # TP reduce over d_ff shards
     ye_pad = torch.cat([ye.reshape(E * C, d), ye.new_zeros((1, d))])
     contrib = ye_pad[token_slot].reshape(T, k, d)
     return torch.sum(contrib * weights.reshape(T, k, 1).to(contrib.dtype),
@@ -120,14 +136,53 @@ def expert_weights(experts: dict, dtype) -> dict:
             for name, w in experts.items()}
 
 
-def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig):
-    """x: (B, S, d) -> (y (B, S, d), aux_loss scalar); the B * S tokens
-    route and share the experts' capacity as one call."""
-    m = cfg.moe
+def _local_moe(x, router_w, experts: dict, m: MoEConfig, axis_model,
+               mesh):
+    """The per-shard body: route this rank's tokens (B, S, d) and run
+    them through its experts.  Returns (y, the shard's aux)."""
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
-    logits = torch.matmul(xf, p["router"]["w"].to(xf.dtype))
+    logits = torch.matmul(xf, router_w.to(xf.dtype))
     weights, ids, aux = route(logits, m)
-    y = dispatch_compute_combine(xf, weights, ids,
-                                 expert_weights(p["experts"], xf.dtype), m)
+    y = dispatch_compute_combine(xf, weights, ids, experts, m, axis_model,
+                                 mesh)
     return y.reshape(B, S, d), aux
+
+
+def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
+            par: ParallelContext = None, *, row_axes=None):
+    """x: (B, S, d) -> (y (B, S, d), aux_loss scalar); the B * S tokens
+    route and share the experts' capacity as one call.
+
+    Under a mesh the parameters are global (the same on every rank) and
+    ``x`` holds this rank's rows of a batch split over the mesh axes
+    ``row_axes`` (None: the whole batch, the same on every rank; the
+    sequence-parallel decode), ``y`` likewise.  The tokens are regrouped
+    over the reference's shards, ``par.batch_axes_for`` of the global
+    batch, when those are not ``row_axes``; each shard routes its own
+    tokens, so the capacity and the drops are the JAX package's."""
+    m = cfg.moe
+    if par is None or par.mesh is None:
+        return _local_moe(x, p["router"]["w"],
+                          expert_weights(p["experts"], x.dtype), m, None,
+                          None)
+    mesh = par.mesh
+    token_ax = par.batch_axes_for(x.shape[0] * par.size(row_axes))
+    regroup = axes_of(token_ax) != axes_of(row_axes)
+    if regroup:
+        x = shard_of(gather_leaf(x, (row_axes,), par), (token_ax,), par)
+    tp = par.tp and "model" in par.axes
+    specs = {"gate": (None, None, "model"), "up": (None, None, "model"),
+             "down": (None, "model", None)}
+    experts = {name: shard_of(w, specs[name], par) if tp else w
+               for name, w in expert_weights(p["experts"], x.dtype).items()}
+    args = (x, p["router"]["w"], experts, m, "model" if tp else None, mesh)
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            w.requires_grad for w in experts.values())):
+        y, aux = checkpoint(_local_moe, *args, use_reentrant=False)
+    else:
+        y, aux = _local_moe(*args)
+    aux = coll.pmean(aux, par.axes, mesh)  # replicated, as the out_spec P()
+    if regroup:
+        y = shard_of(gather_leaf(y, (token_ax,), par), (row_axes,), par)
+    return y, aux

@@ -130,10 +130,11 @@ def pool_layer(pool, layer: int):
 
 
 def _layer(p, x, cfg, *, positions, window, cache=None, cache_len=None,
-           prefix_kv=None, prefix_positions=None):
+           prefix_kv=None, prefix_positions=None, par=None, row_axes=None):
     """One layer.  Returns (x, kv, aux): aux is the MoE layer's
     load-balancing loss, None for a dense layer (serving launches no
-    kernel for it)."""
+    kernel for it).  ``par`` / ``row_axes``: the MoE's mesh and the axes
+    x's rows are split over (``moe_ffn``)."""
     h, kv = L.attention_block(
         p["attn"], L.rmsnorm(p["attn_norm"], x, cfg.norm_eps), cfg,
         positions=positions, window=window, cache=cache, cache_len=cache_len,
@@ -141,14 +142,15 @@ def _layer(p, x, cfg, *, positions, window, cache=None, cache_len=None,
     x = x + h
     hn = L.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
     if "moe" in p:
-        h, aux = moe_ffn(p["moe"], hn, cfg)
+        h, aux = moe_ffn(p["moe"], hn, cfg, par, row_axes=row_axes)
     else:
         h, aux = L.swiglu(p["ffn"], hn), None
     return x + h, kv, aux
 
 
-def _train_layer(p, x, cfg, positions, window):
-    x, _, aux = _layer(p, x, cfg, positions=positions, window=window)
+def _train_layer(p, x, cfg, positions, window, par=None, row_axes=None):
+    x, _, aux = _layer(p, x, cfg, positions=positions, window=window,
+                       par=par, row_axes=row_axes)
     return x, aux
 
 
@@ -160,15 +162,16 @@ def forward(params, tokens, cfg: ModelConfig, *,
             logit_positions: Optional[torch.Tensor] = None,
             return_kv: bool = False, prefix: Optional[dict] = None,
             embeddings: Optional[torch.Tensor] = None,
-            return_aux: bool = False):
+            return_aux: bool = False, par=None):
     """Full-sequence forward.  tokens: (B, S).  Returns (logits, kvs):
     logits (B, S, V) f32, or (B, V) at ``logit_positions`` (B,); kvs as
     :func:`trunk` returns them.  ``return_aux`` appends the summed MoE
     load-balancing loss of the layers (zero without MoE), which the JAX
-    package's ``forward`` returns and training adds."""
+    package's ``forward`` returns and training adds.  ``par``: see
+    :func:`trunk`."""
     x, kvs, aux = trunk(params, tokens, cfg, return_kv=return_kv,
                         prefix=prefix, embeddings=embeddings,
-                        return_aux=True)
+                        return_aux=True, par=par)
     if logit_positions is not None:
         B = tokens.shape[0]
         x = x[torch.arange(B, device=x.device), logit_positions.long()]
@@ -179,7 +182,7 @@ def forward(params, tokens, cfg: ModelConfig, *,
 def trunk(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
           prefix: Optional[dict] = None,
           embeddings: Optional[torch.Tensor] = None,
-          return_aux: bool = False):
+          return_aux: bool = False, par=None):
     """The layers and final norm, without the LM head (the reward model
     puts its own head on them).  tokens: (B, S).  Returns (x, kvs): x
     (B, S, d_model) in ``cfg.dtype``; kvs the per-layer rope'd (k, v) of
@@ -200,8 +203,15 @@ def trunk(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
     ``return_aux`` appends the layers' summed MoE loss.  With
     ``cfg.remat == "full"`` and activations that carry gradients
     (training), each layer runs under ``torch.utils.checkpoint`` (the JAX
-    package's ``jax.checkpoint``)."""
+    package's ``jax.checkpoint``).
+
+    ``par``: a mesh, under which ``tokens`` are this rank's rows of a
+    batch split over ``par.spec("batch")`` (the sharded train step's
+    layout).  Only an MoE layer's math depends on it (``moe_ffn``: its
+    token shards and its experts' ff split); the rest is per row."""
     dtype = getattr(torch, cfg.dtype)
+    row_axes = par.spec("batch")[0] if par is not None and \
+        par.mesh is not None else None
     x = L.embed(params["embedding"], tokens, dtype)
     if embeddings is not None:
         if prefix is not None:
@@ -228,14 +238,15 @@ def trunk(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
         and not return_kv
     for i, (lp, w) in enumerate(zip(params["layers"], layer_windows(cfg))):
         if remat:
-            x, a = checkpoint(_train_layer, lp, x, cfg, positions, w,
-                              use_reentrant=False)
+            x, a = checkpoint(_train_layer, lp, x, cfg, positions, w, par,
+                              row_axes, use_reentrant=False)
         else:
             pkv = None if prefix is None else (prefix["k"][i],
                                                prefix["v"][i])
             x, kv, a = _layer(lp, x, cfg, positions=positions, window=w,
                               prefix_kv=pkv,
-                              prefix_positions=prefix_positions)
+                              prefix_positions=prefix_positions, par=par,
+                              row_axes=row_axes)
             if return_kv:
                 kvs.append(kv)
         if a is not None:
@@ -359,24 +370,42 @@ def scatter_suffix(paged: dict, kvs, start) -> None:
                                    paged["table"], bs, start)
 
 
-def decode_step(params, tokens, cache: dict, cache_len, cfg: ModelConfig):
+def decode_step(params, tokens, cache: dict, cache_len, cfg: ModelConfig,
+                par=None):
     """One decode step over a paged or a dense cache.
 
     tokens: (B, 1) current tokens; cache: the paged {"k", "v", "table"}
     or the dense {"k", "v"} of :func:`prefill`; cache_len: (B,) int32
     sequence length *after* this token is appended.  Writes each row's
     K/V into the cache in place and returns the (B, V) f32 next-token
-    logits."""
+    logits.
+
+    ``par`` with a ``kv_seq_axis``: sequence-parallel decode.  tokens,
+    cache_len and the logits are the global rows (the same on every
+    rank); the dense cache is this rank's block of it
+    (``serving.seq_parallel.shard_cache``).  A paged cache refuses it,
+    as in the JAX package."""
     dtype = getattr(torch, cfg.dtype)
     x = L.embed(params["embedding"], tokens, dtype)
     positions = (cache_len - 1)[:, None]
+    seq_par = par is not None and par.kv_seq_axis is not None
+    if "table" in cache and seq_par:
+        raise NotImplementedError(
+            "paged KV cache is not supported with sequence-parallel decode")
     for layer, (lp, w) in enumerate(zip(params["layers"],
                                         layer_windows(cfg))):
         layer_cache = {"k": pool_layer(cache["k"], layer),
                        "v": pool_layer(cache["v"], layer)}
+        if seq_par:
+            from repro_torch.serving.seq_parallel import \
+                seq_parallel_decode_layer
+            x, _, _ = seq_parallel_decode_layer(
+                lp, x, cfg, par, cache_k=layer_cache["k"],
+                cache_v=layer_cache["v"], cache_len=cache_len, window=w)
+            continue
         if "table" in cache:
             layer_cache["table"] = cache["table"]
         x, _, _ = _layer(lp, x, cfg, positions=positions, window=w,
-                         cache=layer_cache, cache_len=cache_len)
+                         cache=layer_cache, cache_len=cache_len, par=par)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.lm_logits(_head(params, cfg), x[:, 0], cfg.logit_softcap)

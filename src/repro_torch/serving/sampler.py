@@ -1,4 +1,5 @@
-"""Token sampling: greedy, temperature, top-k and top-p (nucleus)."""
+"""Token sampling: greedy, temperature, top-k and top-p (nucleus), and
+sampling from vocab-sharded logits (``distributed_sample``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -54,3 +55,82 @@ def logprobs_of(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Per-token log-probabilities. (B, V), (B,) -> (B,)."""
     lp = torch.log_softmax(logits.float(), dim=-1)
     return torch.gather(lp, -1, tokens.long()[:, None])[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# Vocab-sharded sampling (beyond-paper: removes the paper's lm_head wall)
+# ---------------------------------------------------------------------------
+
+_INT32_MAX = 2 ** 31 - 1
+
+
+def _merge_shard_winners(loc_max, loc_arg, axis, mesh):
+    """Global argmax across shards with unsharded-``argmax`` tie
+    semantics: among shards achieving the global max, the *lowest* global
+    index wins (pmin over winner candidates; losers contribute
+    INT32_MAX)."""
+    from repro_torch.distributed import collectives as C
+
+    glob_max = C.pmax(loc_max, axis, mesh)
+    winner = torch.where(loc_max >= glob_max, loc_arg,
+                         torch.full_like(loc_arg, _INT32_MAX))
+    return C.pmin(winner, axis, mesh).to(torch.int32)
+
+
+def _local_gumbel_max(logits_loc, seed: int, temperature: float, axis,
+                      mesh, vocab_per_shard: int):
+    """Per-shard iid Gumbel noise from a generator seeded by ``seed`` and
+    the shard's index (the JAX package folds the shard into its key; the
+    two packages' random streams differ, the distribution does not)."""
+    from repro_torch.distributed import collectives as C
+
+    shard = C.axis_index(axis, mesh)
+    gen = torch.Generator(device=logits_loc.device)
+    gen.manual_seed(int(seed) * 1_000_003 + shard)
+    u = torch.rand(logits_loc.shape, generator=gen,
+                   device=logits_loc.device)
+    g = -torch.log(-torch.log(u.clamp(1e-20, 1.0)))
+    y = logits_loc / max(temperature, 1e-6) + g
+    loc_max, loc_arg = y.amax(dim=-1), torch.argmax(y, dim=-1)
+    return _merge_shard_winners(loc_max, loc_arg + shard * vocab_per_shard,
+                                axis, mesh)
+
+
+def _local_greedy(logits_loc, axis, mesh, vocab_per_shard: int):
+    from repro_torch.distributed import collectives as C
+
+    shard = C.axis_index(axis, mesh)
+    loc_max = logits_loc.amax(dim=-1)
+    loc_arg = torch.argmax(logits_loc, dim=-1)
+    return _merge_shard_winners(loc_max, loc_arg + shard * vocab_per_shard,
+                                axis, mesh)
+
+
+def distributed_sample(logits: torch.Tensor, seed: int, sc: SamplerConfig,
+                       par) -> torch.Tensor:
+    """Sample from (B, V) logits sharded over the ``model`` axis without
+    gathering them.  Greedy = distributed argmax; stochastic = distributed
+    Gumbel-max (exact categorical sample, temperature folded in; top-k and
+    top-p are not applied, as in the JAX package).
+
+    ``logits`` are global (the same on every rank); each rank reads its
+    rows of ``par.batch_axes_for(B)`` and its vocab block, and the tokens
+    come back global.  Without a ``model`` axis, or when the vocab does
+    not divide it (internvl2's 151655), :func:`sample` runs on the whole
+    logits with a generator seeded by ``seed``."""
+    from repro_torch.distributed.sharding import gather_leaf, shard_of
+
+    if par is None or par.mesh is None or "model" not in par.axes or \
+            logits.shape[-1] % par.n_model:
+        gen = torch.Generator(device=logits.device)
+        gen.manual_seed(int(seed))
+        return sample(logits, gen, sc)
+    vps = logits.shape[-1] // par.n_model
+    batch_axes = par.batch_axes_for(logits.shape[0])
+    lg = shard_of(logits, (batch_axes, "model"), par)
+    if sc.greedy:
+        tok = _local_greedy(lg, "model", par.mesh, vps)
+    else:
+        tok = _local_gumbel_max(lg, seed, sc.temperature, "model", par.mesh,
+                                vps)
+    return gather_leaf(tok, (batch_axes,), par)

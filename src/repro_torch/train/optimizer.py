@@ -80,12 +80,15 @@ def _decay_mask(path) -> bool:
     return str(path[-1]) not in _NO_DECAY
 
 
-def adamw_update(params, grads, opt_state: dict, oc: AdamWConfig):
+def adamw_update(params, grads, opt_state: dict, oc: AdamWConfig, *,
+                 grad_norm=None):
     """One AdamW step.  Returns (new_params, new_opt_state, metrics
     {"lr", "grad_norm"}).  Grads go to f32 and are clipped by global norm;
     the step count advances; the moments update and are bias-corrected;
     decay is added to the update, which is applied in f32 and cast to
-    each parameter's dtype.
+    each parameter's dtype.  ``grad_norm``: the grads' global norm when
+    they are this rank's blocks of a sharded tree (the sharded step sums
+    their squares across ranks); by default the norm of ``grads``.
 
     The new parameters and moments are written into the given tensors,
     which come back (the caller hands them over, as to the JAX package's
@@ -93,7 +96,7 @@ def adamw_update(params, grads, opt_state: dict, oc: AdamWConfig):
     qwen2.5-1.5b rather than twice that."""
     # clipping scales each f32 grad as it is used (the reference's
     # clipped tree, without holding a second copy of it)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     clip = (torch.clamp_max(oc.grad_clip / torch.clamp_min(gnorm, 1e-9),
                             1.0) if oc.grad_clip else None)
     step = opt_state["step"] + 1

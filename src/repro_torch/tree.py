@@ -10,6 +10,7 @@ leaf: what the checkpoint format and the bridge need.
 """
 from __future__ import annotations
 
+import hashlib
 from typing import Any, Callable, List, Tuple
 
 
@@ -87,3 +88,15 @@ def _paths(node, path: str = ""):
             yield from _paths(node[k], f"{path}/{k}" if path else str(k))
     else:
         yield path, node
+
+
+def digest(tree) -> str:
+    """The sha256 of a tree of tensors: each leaf's bytes, in ``flatten``
+    order, copied to the host one leaf at a time."""
+    import torch
+
+    h = hashlib.sha256()
+    for leaf in flatten(tree)[0]:
+        raw = leaf.detach().contiguous().reshape(-1).view(torch.uint8)
+        h.update(raw.cpu().numpy().tobytes())
+    return h.hexdigest()

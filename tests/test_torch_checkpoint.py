@@ -188,10 +188,13 @@ def test_bfloat16_and_unreadable_leaves(tmp_path):
             {"a": {"w": torch.empty(12, device="meta")}}, device="cpu")
 
 
-def test_train_entry_point_resumes_after_relaunch(tmp_path, capsys):
+def test_train_entry_point_resumes_after_relaunch(tmp_path, capsys,
+                                                 monkeypatch):
     """``launch.train --smoke --device cpu``: 4 steps with a checkpoint
     every 2, then the identical command to 6 steps resumes at step 4 (the
-    restored state equal to the saved one) and runs 2 more."""
+    restored state equal to the saved one) and runs 2 more.  ``--mesh``
+    outside a launcher of ranks (no ``RANK`` / ``WORLD_SIZE``) refuses to
+    start."""
     from repro_torch.launch import train
 
     args = ["--arch", "qwen2.5-1.5b", "--smoke", "--device", "cpu",
@@ -205,7 +208,9 @@ def test_train_entry_point_resumes_after_relaunch(tmp_path, capsys):
     assert second["start"] == 4 and len(second["losses"]) == 2
     assert int(second["state"]["step"]) == 6
     assert "[ft] restored checkpoint at step 4" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="distributed"):
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
         train.main(args + ["--mesh", "2x1"])
 
 
