@@ -9,7 +9,18 @@ Phases, one JSON line each:
    versions;
 2. ``build``: nvcc builds every kernel from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel);
-3. ``kernel``: every kernel of the main path held against its plain
+3. ``dryrun``: ``python -m repro_torch.launch.dryrun`` on mamba2-130m's
+   ``decode_32k`` cell of the 2x16x16 mesh (rank 0's program on the
+   ``meta`` device, the card hidden from the process): its record, 512
+   devices and FLOPs > 0; then ``run_cell`` of whisper-base's
+   ``decode_32k`` cell with no mesh and W4A16 weights (128 rows against
+   32768 cached positions), the same cell's arguments built on the card
+   and its step run once (``dryrun_check``): the bytes the arguments
+   take equal the dry-run's argument bytes up to the allocator's 512 B a
+   tensor, the peak over them lies within ``DRYRUN_TEMP_RTOL`` of its
+   temp bytes plus ``DRYRUN_SLACK``, and the K3 launches and hooked K3
+   FLOPs equal the dry-run's hooked calls and kernel FLOPs;
+4. ``kernel``: every kernel of the main path held against its plain
    PyTorch version on the same CUDA tensors (paged attention: exact 2e-5,
    LUT 2e-3 in f32; GEMM: 1e-3 f32, 2e-2 bf16; bf16 outputs also allow one
    bf16 rounding step of relative error, since both sides round their f32
@@ -19,11 +30,13 @@ Phases, one JSON line each:
    Paged attention runs here at the decode shapes, at its own split count,
    also timed at 1 and 4 splits and with 17 times the rows at 1 and 2,
    and at olmoe-1b-7b's decode shape (Hkv 16, G 1) on the two paths that
-   serve it (Q8 exact, Q4 LUT); the GEMM and the KV dequant run after
-   phase 5, at the shapes its runs launched them with, the GEMM and its
+   serve it (Q8 exact, Q4 LUT), and at stablelm-3b's (Hkv 32, G 1, head
+   dim 80: 40-byte Q4 code rows, loaded in 4-byte chunks) on Q4 pools in
+   both softmaxes; the GEMM and the KV dequant run after
+   phase 6, at the shapes its runs launched them with, the GEMM and its
    library call timed hot (one weight back to back) and cold (a rotation
    over weight copies past the 50 MB L2), with the GEMM's regime;
-4. ``reference``: a small quantized model run on the GPU and on the CPU
+5. ``reference``: a small quantized model run on the GPU and on the CPU
    (plain versions) from the same weights and tokens; prefill,
    teacher-forced decode and partial-prefill (cached prefix) logits must
    agree; then a small MoE model (its routing ids equal on both devices
@@ -34,7 +47,7 @@ Phases, one JSON line each:
    CPU's f32; a small W4A16 Whisper the same way (every self and cross
    K/V leaf too); and one training step of a small f32 transformer
    (loss, every grad leaf and the updated params, TF32 off);
-5. ``serve``: ``repro_torch.launch.serve`` at the full width of
+6. ``serve``: ``repro_torch.launch.serve`` at the full width of
    qwen2.5-1.5b (28 layers, random seeded weights, W4A16), once per path:
    continuous Best-of-8 over 4 tasks on Q8, Q4 and bf16 KV, each in exact
    and LUT softmax; then with the prefix cache over a shared 3-shot
@@ -53,7 +66,11 @@ Phases, one JSON line each:
    1024, top-8, W4A16 with Q4 expert gate/up and Q8 expert down),
    continuous Best-of-8 over 2 tasks on Q8 KV (``moe/q8``), on Q4 KV with
    the LUT softmax (``moe/q4lut``) and on Q8 KV with the prefix cache over
-   a 3-shot header (``moe/prefix``); then, on dense cache rows (no
+   a 3-shot header (``moe/prefix``); then stablelm-3b at its published
+   width (32 layers, d_model 2560, 32 KV heads of 80), W4A16, on Q4 KV
+   with exact softmax and the prefix cache over a 3-shot header,
+   continuous Best-of-8 over 2 tasks (``q4/stablelm``: K2 and K4 at its
+   40-byte rows); then, on dense cache rows (no
    ``--paged``), Best-of-8 over 2 tasks: zamba2-1.2b at its published
    width (38 Mamba2 layers, d_model 2048, d_state 64; the shared
    attention + SwiGLU block after every 6th layer), W4A16, through the
@@ -104,7 +121,7 @@ Phases, one JSON line each:
    a 1 x 2 mesh with tp against no mesh, ``compressed_psum`` of 64 MB
    against ``psum``, and the 2 x 2 checkpoint restored onto 1 x 2 and
    onto one rank bit for bit;
-6. ``observe``: the serve again through ``--trace`` and ``--profile``
+7. ``observe``: the serve again through ``--trace`` and ``--profile``
    (the request tracer, the kernel profiler with its numerics canary at
    rate 0.25), Best-of-8 over 2 tasks: Q8/exact off, on, off, on, then on
    with the canary off; Q4/LUT and q8/prefix on; spec/self traced;
@@ -118,7 +135,7 @@ Phases, one JSON line each:
    ``kernel_time_share``, ``roofline_efficiency_p50``, per-op calls, bound
    and attributed wall, the canary's drift) and an ``observe_cost`` line
    (decode tok/s and step p50 off and on, in turns);
-7. ``flash``: ``ops.flash_attention`` (K5) in its three exp modes (lut,
+8. ``flash``: ``ops.flash_attention`` (K5) in its three exp modes (lut,
    poly, exact) at qwen2.5-1.5b's attention geometry (12 query heads, 2 KV
    heads, head_dim 128, causal) for (B, S) = (1, 2048), (8, 256) and
    (1, 79), and at the JAX package's Fig. 14 and Table 5 shapes; every
@@ -126,20 +143,20 @@ Phases, one JSON line each:
    within 2e-2 of f32 attention, and the full-width cases timed beside
    their bound, the plain version and ``F.scaled_dot_product_attention``
    (timed only);
-8. ``quantize``: ``ops.tile_quantize_op`` (K6) over the 168 Q4
+9. ``quantize``: ``ops.tile_quantize_op`` (K6) over the 168 Q4
    projections of full-width qwen2.5-1.5b (28 layers x q, k, v, o, gate,
    up; the f32 weights the serve quantizes, seed 0); codes and scales
    exactly equal to the plain version, >= 99.9% of 4-bit codes equal to
    the offline quantizer's, and each leaf through K3 at M = 8 against
    ``dequant_matmul_ref``; each projection shape timed beside an empty
    kernel on its grid and on one block (the launch floor);
-9. ``profile``: where a decode step's time goes, under ``torch.profiler``,
+10. ``profile``: where a decode step's time goes, under ``torch.profiler``,
    with K3's and K1/K2's device ms per decode step, for qwen2.5-1.5b, for
    olmoe-1b-7b (with its experts' dequant and products timed by CUDA
    events at the step's shapes and set against the step) and for
    zamba2-1.2b on dense rows.
 
-Phases 7 and 8 reset the counters, drive their entry point once per case,
+Phases 8 and 9 reset the counters, drive their entry point once per case,
 and read the counts before any comparison or timing launches.  Then a
 ``{"kernels": [...]}`` line (each row's ``launches`` from the run of its
 own path or phase), the nvidia-smi line, and last
@@ -333,15 +350,17 @@ def check_close(name, out, want, atol, rtol=0.0) -> float:
 # ---------------------------------------------------------------------------
 
 
-def paged_case(kind: str, dtype, seed: int, Hkv: int = 2, G: int = 6):
+def paged_case(kind: str, dtype, seed: int, Hkv: int = 2, G: int = 6,
+               D: int = 128):
     """Main-path decode shapes: B=8 slots, 16-token blocks, W=16 (max_len
-    256), D=128 and qwen2.5-1.5b's Hkv=2, G=6 (olmoe-1b-7b: Hkv=16, G=1);
-    ragged lengths including 0 and full."""
+    256), D=128 and qwen2.5-1.5b's Hkv=2, G=6 (olmoe-1b-7b: Hkv=16, G=1;
+    stablelm-3b: Hkv=32, G=1, D=80); ragged lengths including 0 and
+    full."""
     import torch
 
     from repro_torch.serving.kv_quant import kv_tile_geometry, quantize_kv
 
-    B, D, bs, W = 8, 128, 16, 16
+    B, bs, W = 8, 16, 16
     nb = 1 + B * W
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q = (torch.randn((B, Hkv, G, D), generator=gen, device="cuda")
@@ -459,14 +478,20 @@ def plain_fn(mode: str):
 
 
 # the paged attention's geometries: qwen2.5-1.5b's every (pool, softmax)
-# path, and olmoe-1b-7b's two (Q8 exact, Q4 LUT); (Hkv, G, path prefix,
-# name suffix, [(kind, mode), ...])
-PAGED_GEOMS = (
-    (2, 6, "", "", [(k, m) for k in ("fp", "q8", "q4")
-                    for m in ("exact", "lut")]),
-    (16, 1, "moe/", "/olmoe", [("q8", "exact"), ("q4", "lut")]),
-)
+# path, olmoe-1b-7b's two (Q8 exact, Q4 LUT) and stablelm-3b's Q4 (head
+# dim 80: 40-byte code rows, 4-byte chunks) in both softmaxes, beside its
+# Q8 (80-byte rows, 16-byte chunks; checked and timed, no serving path);
+# (Hkv, G, D, {(kind, mode): serving path} or None for qwen's
+# "<kv>/<mode>", name suffix, [(kind, mode), ...])
 MOE_PATH = {("q8", "exact"): "moe/q8", ("q4", "lut"): "moe/q4lut"}
+STABLELM_PATH = {("q4", "exact"): "q4/stablelm", ("q4", "lut"): "q4/stablelm"}
+PAGED_GEOMS = (
+    (2, 6, 128, None, "", [(k, m) for k in ("fp", "q8", "q4")
+                           for m in ("exact", "lut")]),
+    (16, 1, 128, MOE_PATH, "/olmoe", [("q8", "exact"), ("q4", "lut")]),
+    (32, 1, 80, STABLELM_PATH, "/stablelm", [("q4", "exact"), ("q4", "lut"),
+                                             ("q8", "exact")]),
+)
 
 
 def check_paged_kernels(results: list) -> None:
@@ -475,7 +500,7 @@ def check_paged_kernels(results: list) -> None:
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as PA
 
-    for Hkv, G, moe, suffix, cases in PAGED_GEOMS:
+    for Hkv, G, D, paths, suffix, cases in PAGED_GEOMS:
         for kind, mode in cases:
             name = "paged_attention" if kind == "fp" else \
                 "quant_paged_attention"
@@ -486,7 +511,7 @@ def check_paged_kernels(results: list) -> None:
             for dtype in (torch.float32, torch.bfloat16):
                 rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
                 q, kp, vp, table, lens = paged_case(kind, dtype, seed=7,
-                                                    Hkv=Hkv, G=G)
+                                                    Hkv=Hkv, G=G, D=D)
                 lut = ops.exp_lut(q.device) if mode == "lut" else None
                 extra = () if kind == "fp" else (ops.q4_codebook(q.device),)
                 errs = []
@@ -510,7 +535,7 @@ def check_paged_kernels(results: list) -> None:
                                                  lut, 0), iters=10)
                 nbytes, flops = paged_bytes_flops(q, kp, table, lens, 0)
                 b_ms, b_by = bound(nbytes, flops, "bfloat16")
-                path = MOE_PATH[kind, mode] if moe else \
+                path = paths.get((kind, mode)) if paths else \
                     f"{'none' if kind == 'fp' else kind}/{mode}"
                 row = {"name": f"{name}/{kind}/{mode}{suffix}",
                        "route": "cuda", "source": PAGED_SRC,
@@ -521,7 +546,7 @@ def check_paged_kernels(results: list) -> None:
                        "library_ms": sdpa_library(q, kp, vp, table, lens),
                        "splits": PA.splits(*q.shape[:2], table.shape[1]),
                        "counter": name, "path": path}
-                if not moe:
+                if not paths:
                     # the same function at other split counts, through
                     # the wrappers' private launch (timed only): 1 and 4
                     # splits at this shape, and 1 and 2 at 17 times its
@@ -538,10 +563,11 @@ def check_paged_kernels(results: list) -> None:
                     row["ms_by_splits"] = {
                         "B8": {s: at(s) for s in (1, 4)},
                         "B136": {s: at(s, big) for s in (1, 2)}}
-                emit("kernel", **row,
-                     shape=f"B8 Hkv{Hkv} G{G} D128 bs16 W16",
+                emit("kernel" if path else "kernel_check", **row,
+                     shape=f"B8 Hkv{Hkv} G{G} D{D} bs16 W16",
                      dtype="bfloat16")
-                results.append(row)
+                if path:
+                    results.append(row)
 
 
 def gemm_case(M: int, K: int, N: int, dtype, seed: int):
@@ -653,14 +679,15 @@ def check_dequant_kv_kernel(results: list, kv_r: dict) -> None:
                 f"lut_dequant_kv/{mode}/R{R}: not bit-identical to the "
                 f"plain version (max abs err "
                 f"{float((out - want).abs().max()):.3e})")
-        if R < 1000:
+        if R < 1000 and (mode, R, Hkv, D) not in kv_r:
             emit("kernel_check", name="lut_dequant_kv", mode=mode, R=R,
-                 Hkv=Hkv, max_abs_err=0.0)
+                 Hkv=Hkv, D=D, max_abs_err=0.0)
             continue
         run = lambda: LK.lut_dequant_kv(*args, **kw)
         b_ms, b_by = bound(*dequant_kv_bytes_flops(q, mode, gr, gc),
                            "float32")
-        tag = "" if Hkv == 2 else f"/Hkv{Hkv}"
+        tag = "" if (Hkv, D) == (2, 128) else f"/Hkv{Hkv}" + (
+            "" if D == 128 else f"D{D}")
         row = {"name": f"lut_dequant_kv/{mode}/R{R}{tag}",
                "route": "cuda",
                "source": DEQUANT_SRC,
@@ -1448,6 +1475,16 @@ SERVE_PATHS["moe/q4lut"] = ("q4", "lut", MOE_ARGS + ["--kv-quant", "q4"],
                             2, 8)
 SERVE_PATHS["moe/prefix"] = ("q8", "exact", MOE_ARGS + [
     "--kv-quant", "q8", "--prefix-cache", "--fewshot", "3"], 2, 8)
+# stablelm-3b at its published width (32 layers, d_model 2560, 32 heads of
+# 80 with 32 KV heads, d_ff 6912, vocab 50304), W4A16, on Q4 KV (40-byte
+# code rows: K2 and K4 in 4-byte chunks), exact softmax, continuous
+# Best-of-8 over 2 tasks with the prefix cache over a 3-shot header (the
+# second task's group hits, so K4 runs at its geometry too)
+STABLELM_ARGS = ["--arch", "stablelm-3b", "--quantize", "--method",
+                 "best_of_n", "--budget", "8", "--tasks", "2", "--continuous",
+                 "--paged", "--kv-quant", "q4", "--prefix-cache", "--fewshot",
+                 "3"]
+SERVE_PATHS["q4/stablelm"] = ("q4", "exact", STABLELM_ARGS, 2, 8)
 # dense rows (no --paged; "dense" below), Best-of-8 over 2 tasks x 48
 # tokens: zamba2-1.2b at its published width (38 Mamba2 layers, d_model
 # 2048, d_state 64, head_dim 64; the shared attention + SwiGLU block, 32
@@ -3038,6 +3075,200 @@ def moe_step_costs(engine, device_ms: float, wall_ms: float) -> dict:
             "expert_products_share_of_wall": prod_ms * L / wall_ms}
 
 
+# ---------------------------------------------------------------------------
+# the dry-run: one production-mesh cell on meta, and a cell held to the card
+# ---------------------------------------------------------------------------
+
+# (a) the one-cell dry-run of the JAX package's system test, through the
+# port's CLI, on the CPU of this machine (the card hidden from it)
+DRYRUN_CLI = ["--arch", "mamba2-130m", "--shape", "decode_32k", "--multi-pod"]
+# (b) a mesh-less registry cell that one card holds whole and that launches
+# K3: whisper-base W4A16 decoding 128 rows against 32768 cached positions
+# (self K/V 48 GiB, cross K/V 2.2 GiB); 42 Q4 projections a step
+DRYRUN_CELL = ("whisper-base", "decode_32k")
+# the card's peak over its arguments against the dry-run's temp bytes,
+# both as the bytes requested of the caching allocator: within this share
+# of them plus DRYRUN_SLACK (cuBLAS workspace, device temporaries of aten
+# ops that meta does not allocate)
+DRYRUN_TEMP_RTOL = 0.02
+DRYRUN_SLACK = 64 << 20
+
+
+def _requested(key: str = "current") -> int:
+    """Bytes requested of the CUDA caching allocator (before its block
+    rounding: 512 B, and up to the unsplit rest of a segment for large
+    blocks), now or at the peak since the last reset."""
+    import torch
+
+    return torch.cuda.memory_stats()[f"requested_bytes.all.{key}"]
+
+
+def _materialize(tree, cfg, dev, cache_len_max: int):
+    """Tensors on ``dev`` for a cell's ``meta`` arguments: fp leaves
+    N(0, 0.02) in place (no f32 copy of a bf16 leaf), Q8/Q4 codes random,
+    f16 scales in [0.005, 0.015), the q4 codebook itself, int32 tokens
+    below the vocab and lengths in [1, ``cache_len_max``]."""
+    import torch
+
+    from repro_torch.quant.codebooks import get_codebook
+
+    def one(name, t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        if name == "codebook":
+            return get_codebook("q4_0").to(dev).expand(t.shape).contiguous()
+        if t.dtype == torch.float16:
+            return torch.empty(t.shape, dtype=t.dtype,
+                               device=dev).uniform_(0.005, 0.015)
+        if t.dtype.is_floating_point:
+            return torch.empty(t.shape, dtype=t.dtype,
+                               device=dev).normal_(0.0, 0.02)
+        if t.dtype == torch.uint8:
+            return torch.randint(0, 256, t.shape, dtype=t.dtype, device=dev)
+        if t.dtype == torch.int8:
+            return torch.randint(-127, 128, t.shape, dtype=t.dtype,
+                                 device=dev)
+        if name == "cache_len":
+            return torch.randint(1, cache_len_max + 1, t.shape,
+                                 dtype=t.dtype, device=dev)
+        return torch.randint(0, cfg.vocab_size, t.shape, dtype=t.dtype,
+                             device=dev)
+
+    def walk(node, name):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return one(name, node)
+
+    return walk(tree, "")
+
+
+def dryrun_phase(dev: str = "cuda") -> dict:
+    """(a) ``python -m repro_torch.launch.dryrun`` on DRYRUN_CLI's cell
+    (512 devices, on meta, CUDA_VISIBLE_DEVICES empty): its record on a
+    ``dryrun`` line, with 512 devices and FLOPs > 0.  (b) ``run_cell`` of
+    DRYRUN_CELL with no mesh and W4A16 weights, then the same cell's
+    arguments built on the card and its step run once: the bytes the
+    arguments request of the allocator equal ``argument_bytes`` (what it
+    allocates, its blocks rounded, stands beside them), the peak request
+    over them lies within DRYRUN_TEMP_RTOL x ``temp_bytes`` +
+    DRYRUN_SLACK of ``temp_bytes``,
+    the K3 launches equal the dry-run's hooked K3 calls and the hooked
+    FLOPs on the card its kernel FLOPs; a ``dryrun_check`` line."""
+    import gc
+    import os
+
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.configs.base import SHAPES_BY_NAME
+    from repro_torch.configs.inputs import build_cell
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import ParallelContext
+    from repro_torch.kernels import lut_dequant_gemm as G
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+
+    out_dir = ROOT / "build" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_CLI,
+         "--out", str(out_dir)], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun CLI exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    rec = json.loads((out_dir / "mamba2-130m__decode_32k__2x16x16.json")
+                     .read_text())
+    if rec["n_devices"] != 512 or not rec["per_device"]["flops"] > 0:
+        raise AssertionError(f"dryrun CLI record: {rec}")
+    emit("dryrun", cli_s=time.perf_counter() - t0, record=rec)
+
+    arch, shape = DRYRUN_CELL
+    cfg = get_config(arch)
+    hooked: dict = {}
+    pred = dryrun.run_cell(arch, shape, ParallelContext(),
+                           out_dir=str(out_dir), mesh_tag="1",
+                           quantized=True, kernels=hooked)
+    pd = pred["per_device"]
+    cell = build_cell(arch, SHAPES_BY_NAME[shape], ParallelContext(),
+                      quantized=True)
+    n_args = sum(1 for t in T.flatten(list(cell.args))[0]
+                 if isinstance(t, torch.Tensor))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base, base_req = torch.cuda.memory_allocated(), _requested()
+    params, cache, tokens, cache_len, seed = cell.args
+    args = (_materialize(params, cfg, dev, 0),
+            _materialize(cache, cfg, dev, 0),
+            _materialize({"tokens": tokens}, cfg, dev, 0)["tokens"],
+            _materialize({"cache_len": cache_len}, cfg, dev,
+                         SHAPES_BY_NAME[shape].seq_len)["cache_len"], seed)
+    torch.cuda.synchronize()
+    arg_bytes = torch.cuda.memory_allocated() - base
+    arg_req = _requested() - base_req
+    if arg_req != pd["argument_bytes"]:
+        raise AssertionError(f"dryrun_check: arguments request {arg_req} "
+                             f"bytes on the card ({arg_bytes} allocated), "
+                             f"{pd['argument_bytes']} predicted ({n_args} "
+                             f"tensors)")
+    card_hooked: dict = {}
+
+    def hook(name, flops, nbytes):
+        d = card_hooked.setdefault(name, {"calls": 0, "flops": 0.0,
+                                          "bytes": 0.0})
+        d["calls"] += 1
+        d["flops"] += flops
+        d["bytes"] += nbytes
+
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    prev = ops.set_op_hook(hook)
+    t0 = time.perf_counter()
+    try:
+        with torch.no_grad():
+            tok, _ = cell.fn(*args)
+        torch.cuda.synchronize()
+    finally:
+        ops.set_op_hook(prev)
+    step_s = time.perf_counter() - t0
+    peak = _requested("peak") - base_req - arg_req
+    peak_alloc = torch.cuda.max_memory_allocated() - base - arg_bytes
+    k3 = G.lut_dequant_gemm.launches
+    want_k3 = hooked["lut_dequant_matmul"]["calls"]
+    ok_tok = tuple(tok.shape) == (SHAPES_BY_NAME[shape].global_batch,) and \
+        bool(((tok >= 0) & (tok < cfg.vocab_size)).all())
+    gap = peak - pd["temp_bytes"]
+    row = dict(cell=f"{arch}:{shape}", quantized=True, tensors=n_args,
+               argument_bytes=pd["argument_bytes"],
+               card_argument_bytes=arg_req,
+               card_argument_bytes_allocated=arg_bytes,
+               temp_bytes=pd["temp_bytes"], card_peak_over_arguments=peak,
+               card_peak_over_arguments_allocated=peak_alloc,
+               temp_gap_bytes=gap, temp_rtol=DRYRUN_TEMP_RTOL,
+               temp_slack_bytes=DRYRUN_SLACK, output_bytes=pd["output_bytes"],
+               alias_bytes=pd["alias_bytes"], flops=pd["flops"],
+               bytes_accessed=pd["bytes_accessed"], k3_launches=k3,
+               k3_hooked_calls=want_k3,
+               kernel_flops=hooked["lut_dequant_matmul"]["flops"],
+               card_hooked_flops=card_hooked.get(
+                   "lut_dequant_matmul", {}).get("flops", 0.0),
+               step_s=step_s, tokens_ok=ok_tok,
+               launches=ops.launch_counts())
+    emit("dryrun_check", **row)
+    del args, tok, params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    if k3 != want_k3 or k3 != sum(gemm_layout(cfg).values()) or \
+            row["card_hooked_flops"] != row["kernel_flops"] or not ok_tok or \
+            abs(gap) > DRYRUN_TEMP_RTOL * pd["temp_bytes"] + DRYRUN_SLACK:
+        raise AssertionError(f"dryrun_check failed: {row}")
+    return row
+
+
 def kernel_rows(results: list, runs: dict, phases: dict) -> list:
     """The rows of the kernels line.  Each row's launches come from the
     serve run of its own path; K3 runs on every path: its rows carry the
@@ -3087,6 +3318,7 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          sources=list(build.SOURCES))
 
+    dryrun_phase()
     results: list = []
     check_paged_kernels(results)
     reference_check()
@@ -3113,7 +3345,7 @@ def main() -> int:
     gemm_mkn, kv_r = {}, {}
     for path in ("q8/exact", "q8/prefix", "q4/prefix", "sc/direct",
                  "beam/sched", "beam/direct") + SPEC_PATHS + MOE_PATHS + \
-            DENSE_PATHS + ("encdec/whisper",):
+            ("q4/stablelm",) + DENSE_PATHS + ("encdec/whisper",):
         for mkn in runs[path]["shapes"]:
             gemm_mkn.setdefault(mkn, path)
         for mode, r in runs[path]["kv_shapes"]:

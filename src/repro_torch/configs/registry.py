@@ -2,13 +2,14 @@
 entry points.  Lists the JAX package's registry whole: the transformer
 family (dense, GQA, QKV bias, sliding window, local:global, MoE, the
 ``patch_stub`` modality frontend), Mamba2 (mamba2-130m), the zamba2
-hybrid (zamba2-1.2b) and the Whisper encoder-decoder (whisper-base)."""
+hybrid (zamba2-1.2b) and the Whisper encoder-decoder (whisper-base).
+``cells`` lists the dry-run's (arch x input shape) cells."""
 from __future__ import annotations
 
 import importlib
 from typing import List
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ALL_SHAPES, ModelConfig
 
 _ARCH_MODULES = {
     "gemma3-1b": "gemma3_1b",
@@ -26,6 +27,9 @@ _ARCH_MODULES = {
     "llama3.2-1b": "llama3_2_1b",
 }
 
+ASSIGNED_ARCHS: List[str] = list(_ARCH_MODULES)[:10]
+PAPER_ARCHS: List[str] = list(_ARCH_MODULES)[10:]
+
 
 def _module(arch: str):
     if arch not in _ARCH_MODULES:
@@ -40,3 +44,18 @@ def get_config(arch: str, *, smoke: bool = False) -> ModelConfig:
 
 def list_archs() -> List[str]:
     return list(_ARCH_MODULES)
+
+
+def cells(archs=None):
+    """All (arch, shape) dry-run cells incl. documented skips.
+
+    Yields (arch, shape, runnable, reason)."""
+    for arch in archs or ASSIGNED_ARCHS:
+        cfg = get_config(arch)
+        for shape in ALL_SHAPES:
+            if cfg.supports_shape(shape):
+                yield arch, shape, True, ""
+            else:
+                yield arch, shape, False, (
+                    "pure full attention — long_500k needs sub-quadratic "
+                    "attention (see DESIGN.md §Arch-applicability)")

@@ -18,16 +18,29 @@ the reduce-scatter into one tensor).  A ``gloo`` group moves CUDA tensors
 through the host: the tensor is copied to the CPU, reduced there and
 copied back.  That is how ranks that share one GPU (where NCCL refuses
 two ranks on a device) talk; it measures nothing about NVLink.
+
+Under a :class:`~repro_torch.distributed.sharding.AbstractMesh` (the
+dry-run) nothing is performed: each primitive takes ``meta`` tensors
+(anything else raises), returns an empty ``meta`` tensor of its result's
+shape and dtype as rank 0 would get it, and adds (1, the result's bytes)
+to the recorder that :func:`record_collectives` installs, under the
+names XLA's HLO gives the primitive (``psum`` / ``pmax`` / ``pmin`` ->
+``all-reduce``, ``all_gather`` -> ``all-gather``, ``psum_scatter`` ->
+``reduce-scatter``).  The backward of a differentiable primitive is its
+transpose and is recorded as such.  An installed recorder also counts
+the collectives a real mesh performs, by the same names.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import axes_of, mesh_shape
+from repro_torch.distributed.sharding import axes_of, is_abstract, mesh_shape
 
 _GROUPS: dict = {}
+_RECORDER = None  # {kind: {"count", "bytes"}} while record_collectives runs
 # torch 2.13 renames the two (and warns on the old names); older releases
 # have only the old ones
 _all_gather_base = getattr(dist, "all_gather_single",
@@ -42,8 +55,41 @@ def axis_size(axis, mesh) -> int:
     return math.prod(shape[a] for a in axes_of(axis))
 
 
+@contextlib.contextmanager
+def record_collectives():
+    """Count the collectives issued in the block: yields {kind: {"count",
+    "bytes"}}, the bytes being each result's (per rank), as the dry-run
+    of the JAX package parses them from the compiled HLO."""
+    global _RECORDER
+    prev, _RECORDER = _RECORDER, {}
+    try:
+        yield _RECORDER
+    finally:
+        _RECORDER = prev
+
+
+def _record(kind: str, result: torch.Tensor) -> None:
+    if _RECORDER is not None:
+        d = _RECORDER.setdefault(kind, {"count": 0, "bytes": 0})
+        d["count"] += 1
+        d["bytes"] += result.numel() * result.element_size()
+
+
+def _abstract(x: torch.Tensor, mesh) -> bool:
+    """Whether ``mesh`` is abstract; then ``x`` must be a meta tensor."""
+    if not is_abstract(mesh):
+        return False
+    if x.device.type != "meta":
+        raise ValueError(f"a collective under an AbstractMesh takes meta "
+                         f"tensors (the dry-run), got one on {x.device}")
+    return True
+
+
 def axis_index(axis, mesh) -> int:
-    """This rank's index along ``axis`` (row-major over a tuple)."""
+    """This rank's index along ``axis`` (row-major over a tuple); rank
+    0's under an AbstractMesh."""
+    if is_abstract(mesh):
+        return 0
     shape = mesh_shape(mesh)
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
     idx = 0
@@ -84,11 +130,17 @@ def _staged(x: torch.Tensor, g) -> bool:
     return x.is_cuda and dist.get_backend(g) == "gloo"
 
 
-def _all_reduce(x, op, g):
-    staged = _staged(x, g)
-    y = x.detach().to("cpu", copy=True) if staged else x.detach().clone()
-    dist.all_reduce(y, op=op, group=g)
-    return y.to(x.device) if staged else y
+def _all_reduce(x, op, axis, mesh):
+    if _abstract(x, mesh):
+        y = torch.empty_like(x.detach())
+    else:
+        g = group(axis, mesh)
+        staged = _staged(x, g)
+        y = x.detach().to("cpu", copy=True) if staged else x.detach().clone()
+        dist.all_reduce(y, op=op, group=g)
+        y = y.to(x.device) if staged else y
+    _record("all-reduce", y)
+    return y
 
 
 def _gather0(x, n, g):
@@ -114,27 +166,43 @@ def _scatter0(x, n, g):
 
 def _gather_dim(x, axis, mesh, dim):
     n = axis_size(axis, mesh)
-    out = _gather0(x.movedim(dim, 0), n, group(axis, mesh))
-    return out.movedim(0, dim)
+    if _abstract(x, mesh):
+        shape = list(x.shape)
+        shape[dim] *= n
+        out = x.new_empty(shape)
+    else:
+        out = _gather0(x.movedim(dim, 0), n,
+                       group(axis, mesh)).movedim(0, dim)
+    _record("all-gather", out)
+    return out
 
 
 def _scatter_dim(x, axis, mesh, dim):
     n = axis_size(axis, mesh)
-    out = _scatter0(x.movedim(dim, 0), n, group(axis, mesh))
-    return out.movedim(0, dim)
+    if _abstract(x, mesh):
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"{n} ways")
+        shape = list(x.shape)
+        shape[dim] //= n
+        out = x.new_empty(shape)
+    else:
+        out = _scatter0(x.movedim(dim, 0), n,
+                        group(axis, mesh)).movedim(0, dim)
+    _record("reduce-scatter", out)
+    return out
 
 
 class _Sum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis, mesh):
         ctx.args = (axis, mesh)
-        return _all_reduce(x, dist.ReduceOp.SUM, group(axis, mesh))
+        return _all_reduce(x, dist.ReduceOp.SUM, axis, mesh)
 
     @staticmethod
     def backward(ctx, g):
         axis, mesh = ctx.args
-        return _all_reduce(g, dist.ReduceOp.SUM, group(axis, mesh)), None, \
-            None
+        return _all_reduce(g, dist.ReduceOp.SUM, axis, mesh), None, None
 
 
 class _Gather(torch.autograd.Function):
@@ -173,13 +241,13 @@ def pmean(x: torch.Tensor, axis, mesh) -> torch.Tensor:
 def pmax(x: torch.Tensor, axis, mesh) -> torch.Tensor:
     if axis_size(axis, mesh) == 1:
         return x.detach()
-    return _all_reduce(x, dist.ReduceOp.MAX, group(axis, mesh))
+    return _all_reduce(x, dist.ReduceOp.MAX, axis, mesh)
 
 
 def pmin(x: torch.Tensor, axis, mesh) -> torch.Tensor:
     if axis_size(axis, mesh) == 1:
         return x.detach()
-    return _all_reduce(x, dist.ReduceOp.MIN, group(axis, mesh))
+    return _all_reduce(x, dist.ReduceOp.MIN, axis, mesh)
 
 
 def psum_scatter(x: torch.Tensor, axis, mesh, *, dim: int = 0,

@@ -19,6 +19,11 @@ reduce-scatters, so a block's grad comes out summed over the ranks that
 shared the gather), and the collectives of ``distributed/collectives.py``
 are written out where the JAX package's ``shard_map`` bodies call them.
 ``constrain`` is a GSPMD hint and returns its input.
+
+Under an :class:`AbstractMesh` (the dry-run) a program runs as rank 0's
+program on the ``meta`` device: ``coordinate`` is rank 0's and each
+collective returns a ``meta`` tensor of its result's shape and is
+recorded, not performed (``collectives.record_collectives``).
 """
 from __future__ import annotations
 
@@ -49,7 +54,8 @@ LOGICAL_RULES = {
 class AbstractMesh:
     """A mesh's axis names and sizes with no process group behind it (the
     counterpart of ``jax.sharding.AbstractMesh``): enough for the sharding
-    rules, block shapes and per-rank bytes, not for collectives."""
+    rules, block shapes and per-rank bytes, and for rank 0's program on
+    ``meta`` tensors, whose collectives are recorded, not performed."""
 
     def __init__(self, shape: Tuple[int, ...], axis_names: Tuple[str, ...]):
         if len(shape) != len(axis_names):
@@ -59,6 +65,10 @@ class AbstractMesh:
 
     def __repr__(self) -> str:
         return f"AbstractMesh({self.shape}, {self.mesh_dim_names})"
+
+
+def is_abstract(mesh) -> bool:
+    return isinstance(mesh, AbstractMesh)
 
 
 def mesh_shape(mesh) -> dict:
@@ -294,7 +304,10 @@ def stack_layers(params) -> dict:
 
 
 def coordinate(par: ParallelContext) -> dict:
-    """{axis: this rank's index along it}."""
+    """{axis: this rank's index along it}; rank 0's (all zeros) under an
+    :class:`AbstractMesh`."""
+    if is_abstract(par.mesh):
+        return {a: 0 for a in par.axes}
     return dict(zip(par.axes, par.mesh.get_coordinate()))
 
 

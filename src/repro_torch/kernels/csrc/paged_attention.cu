@@ -36,7 +36,7 @@
 // S = 1 one fused launch scores and attends and writes the output.
 //
 // Inside a thread block (128 threads) a K/V block is loaded with every
-// thread's 16-byte loads in flight at once, the next block's loads issued
+// thread's chunk loads in flight at once, the next block's loads issued
 // before the current block is computed, and dequantized into shared memory
 // as f32 (Q8: code * scale, Q4: the 16-entry codebook; the scale index is
 // a shift, tile groups being powers of two).  Scores are warp-cooperative:
@@ -46,6 +46,12 @@
 // per query head run the online-softmax update; a thread updates three
 // (head, dim) elements of acc at once.  The 64 KiB exp LUT is read
 // through the read-only cache.
+//
+// A chunk is 16 bytes of a row.  Quantized rows that are not a multiple of
+// 16 bytes (stablelm-3b's Q4 rows: head_dim 80, 40 bytes) and scale groups
+// too narrow for a 16-byte chunk load in 4-byte chunks instead: the same
+// code with twice the chunks per thread, chosen at launch by the wrapper.
+// Rows of a multiple of 16 bytes keep the 16-byte chunks.
 //
 // LUT mode copies the reference's rounding points: s16 = fp16(masked s),
 // m kept in fp16, s16 - m_new rounded to fp16, corr = LUT(m_prev - m_new)
@@ -61,6 +67,7 @@ constexpr float kNegCap = -30000.0f;  // finite fp16 "-inf" of the LUT mode
 constexpr float kNegInf = -1e30f;     // masked score of the exact mode
 constexpr int kThreads = 128;
 constexpr int kMaxChunks = 4;  // 16-byte K (and V) chunks per thread
+constexpr int kMaxChunks4 = 8; // 4-byte chunks per thread (narrow rows)
 constexpr int kMaxDims = 32;   // head_dim / 8 per score lane (D <= 256)
 constexpr int kMaxScores = 4;  // G * bs <= kMaxScores * kThreads
 constexpr int kMaxSplits = 16;
@@ -125,10 +132,27 @@ __host__ __device__ __forceinline__ int row_bytes(int D) {
   return LOADER == kFp ? D * (int)sizeof(T) : (LOADER == kQ8 ? D : D / 2);
 }
 
-// Values per 16-byte chunk of a row.
-template <typename T, int LOADER>
+// Values per CB-byte chunk of a row.
+template <typename T, int LOADER, int CB>
 __device__ __forceinline__ constexpr int chunk_elems() {
-  return LOADER == kFp ? 16 / (int)sizeof(T) : (LOADER == kQ8 ? 16 : 32);
+  return LOADER == kFp ? CB / (int)sizeof(T) : (LOADER == kQ8 ? CB : 2 * CB);
+}
+
+// A chunk in registers, its load, and the chunks a thread holds.
+template <int CB> struct Chunk;
+template <> struct Chunk<16> {
+  using type = uint4;
+  static constexpr int per_thread = kMaxChunks;
+};
+template <> struct Chunk<4> {
+  using type = uint32_t;
+  static constexpr int per_thread = kMaxChunks4;
+};
+
+template <int CB>
+__device__ __forceinline__ typename Chunk<CB>::type load_chunk(
+    const char* src) {
+  return __ldg(reinterpret_cast<const typename Chunk<CB>::type*>(src));
 }
 
 // score-row stride in floats: >= D and 8 mod 32, so the 4 tokens x 8 dims
@@ -137,16 +161,17 @@ __host__ __device__ __forceinline__ int k_stride(int D) {
   return D + ((8 - D % 32) + 32) % 32;
 }
 
-// Decode one 16-byte chunk (values d0 .. d0 + E - 1 of token t) into
+// Decode one CB-byte chunk (values d0 .. d0 + E - 1 of token t) into
 // dst[t * stride + d] as f32; `sc` holds the chunk's f16 scales (element i
 // takes scale i >> gc_shift, or the one scale when a group covers the
 // chunk).
-template <typename T, int LOADER, bool ROUND16>
-__device__ __forceinline__ void decode_chunk(const Params& p, uint4 raw,
+template <typename T, int LOADER, int CB, bool ROUND16>
+__device__ __forceinline__ void decode_chunk(const Params& p,
+                                             typename Chunk<CB>::type raw,
                                              uint2 sc, const float* cb,
                                              int t, int d0, float* dst,
                                              int stride) {
-  constexpr int E = chunk_elems<T, LOADER>();
+  constexpr int E = chunk_elems<T, LOADER, CB>();
   float* out = dst + t * stride + d0;
   if constexpr (LOADER == kFp) {
     const T* e = reinterpret_cast<const T*>(&raw);
@@ -174,15 +199,15 @@ __device__ __forceinline__ void decode_chunk(const Params& p, uint4 raw,
   }
 }
 
-// The f16 scales of one chunk (at most 4: E <= 32 values, groups of >= 8),
-// packed into a uint2.
-template <typename T, int LOADER>
+// The f16 scales of one chunk (at most 4; the wrapper admits only scale
+// groups of >= E / 4 values), packed into a uint2.
+template <typename T, int LOADER, int CB>
 __device__ __forceinline__ uint2 load_scales(const Params& p,
                                              const __half* scales,
                                              size_t slab, int h, int d0) {
   uint2 r = make_uint2(0u, 0u);
   if constexpr (LOADER != kFp) {
-    constexpr int E = chunk_elems<T, LOADER>();
+    constexpr int E = chunk_elems<T, LOADER, CB>();
     const unsigned short* srow =
         reinterpret_cast<const unsigned short*>(scales) +
         (slab * p.Hs + (h >> p.gr_shift)) * p.Ds + (d0 >> p.gc_shift);
@@ -196,43 +221,42 @@ __device__ __forceinline__ uint2 load_scales(const Params& p,
   return r;
 }
 
-// A block's loads in flight: each thread's 16-byte K and V chunks, their
-// scales, and (attend phase) its share of the stored scores.
+// A block's loads in flight: each thread's K and V chunks, their scales,
+// and (attend phase) its share of the stored scores.
+template <int CB>
 struct Inflight {
-  uint4 k[kMaxChunks], v[kMaxChunks];
-  uint2 ks[kMaxChunks], vs[kMaxChunks];
+  typename Chunk<CB>::type k[Chunk<CB>::per_thread], v[Chunk<CB>::per_thread];
+  uint2 ks[Chunk<CB>::per_thread], vs[Chunk<CB>::per_thread];
   float sc[kMaxScores];
 };
 
 // Issue the loads of table entry j (block blk) of KV head h: K when SCORE,
-// V when ATTEND.  The wrapper admits only 16-byte-aligned pools whose rows
-// are a multiple of 16 bytes and whose blocks are at most
-// kMaxChunks * kThreads chunks.
-template <typename T, int LOADER, int PHASE>
+// V when ATTEND.  The wrapper admits only CB-byte-aligned pools whose rows
+// are a multiple of CB bytes and whose blocks are at most
+// Chunk<CB>::per_thread * kThreads chunks.
+template <typename T, int LOADER, int CB, int PHASE>
 __device__ __forceinline__ void issue_block(const Params& p, int blk, int j,
-                                            int h, int bh, Inflight& f) {
+                                            int h, int bh, Inflight<CB>& f) {
   constexpr bool SCORE = PHASE != kAttend;
   constexpr bool ATTEND = PHASE != kScore;
-  constexpr int E = chunk_elems<T, LOADER>();
+  constexpr int E = chunk_elems<T, LOADER, CB>();
   const int rb = row_bytes<T, LOADER>(p.D);
-  const int cpr = rb / 16;
+  const int cpr = rb / CB;
   const int nch = p.bs * cpr;
 #pragma unroll
-  for (int u = 0; u < kMaxChunks; ++u) {
+  for (int u = 0; u < Chunk<CB>::per_thread; ++u) {
     const int c = threadIdx.x + u * kThreads;
     if (c < nch) {
       const int t = c / cpr, cc = c - t * cpr;
       const size_t slab = (size_t)blk * p.bs + t;
-      const size_t off = (slab * p.Hkv + h) * rb + (size_t)cc * 16;
+      const size_t off = (slab * p.Hkv + h) * rb + (size_t)cc * CB;
       if (SCORE) {
-        f.k[u] = __ldg(reinterpret_cast<const uint4*>(
-            static_cast<const char*>(p.k) + off));
-        f.ks[u] = load_scales<T, LOADER>(p, p.ks, slab, h, cc * E);
+        f.k[u] = load_chunk<CB>(static_cast<const char*>(p.k) + off);
+        f.ks[u] = load_scales<T, LOADER, CB>(p, p.ks, slab, h, cc * E);
       }
       if (ATTEND) {
-        f.v[u] = __ldg(reinterpret_cast<const uint4*>(
-            static_cast<const char*>(p.v) + off));
-        f.vs[u] = load_scales<T, LOADER>(p, p.vs, slab, h, cc * E);
+        f.v[u] = load_chunk<CB>(static_cast<const char*>(p.v) + off);
+        f.vs[u] = load_scales<T, LOADER, CB>(p, p.vs, slab, h, cc * E);
       }
     }
   }
@@ -252,27 +276,27 @@ __device__ __forceinline__ void issue_block(const Params& p, int blk, int j,
 
 // Dequantize the block in flight into kb (rows of stride k_stride(D)) and
 // vb (rows of stride D), and (attend phase) its scores into ps.
-template <typename T, int LOADER, bool LUT, int PHASE>
+template <typename T, int LOADER, int CB, bool LUT, int PHASE>
 __device__ __forceinline__ void decode_block(const Params& p, const float* cb,
-                                             const Inflight& f, float* kb,
+                                             const Inflight<CB>& f, float* kb,
                                              float* vb, float* ps) {
   constexpr bool SCORE = PHASE != kAttend;
   constexpr bool ATTEND = PHASE != kScore;
-  constexpr int E = chunk_elems<T, LOADER>();
-  const int cpr = row_bytes<T, LOADER>(p.D) / 16;
+  constexpr int E = chunk_elems<T, LOADER, CB>();
+  const int cpr = row_bytes<T, LOADER>(p.D) / CB;
   const int nch = p.bs * cpr;
   const int ks = k_stride(p.D);
 #pragma unroll
-  for (int u = 0; u < kMaxChunks; ++u) {
+  for (int u = 0; u < Chunk<CB>::per_thread; ++u) {
     const int c = threadIdx.x + u * kThreads;
     if (c < nch) {
       const int t = c / cpr, cc = c - t * cpr;
       if (SCORE)
-        decode_chunk<T, LOADER, false>(p, f.k[u], f.ks[u], cb, t, cc * E, kb,
-                                       ks);
+        decode_chunk<T, LOADER, CB, false>(p, f.k[u], f.ks[u], cb, t, cc * E,
+                                           kb, ks);
       if (ATTEND)
-        decode_chunk<T, LOADER, LUT>(p, f.v[u], f.vs[u], cb, t, cc * E, vb,
-                                     p.D);
+        decode_chunk<T, LOADER, CB, LUT>(p, f.v[u], f.vs[u], cb, t, cc * E,
+                                         vb, p.D);
     }
   }
   if (PHASE == kAttend) {
@@ -291,7 +315,7 @@ __device__ __forceinline__ bool valid_pos(int pos, int len, int window) {
 // grid (Hkv, B, S); PHASE kFused (S = 1): score + attend + output;
 // kScore: scores and block maxima; kAttend: the split's partial from the
 // stored scores.
-template <typename T, int LOADER, bool LUT, int PHASE>
+template <typename T, int LOADER, int CB, bool LUT, int PHASE>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
   constexpr bool SCORE = PHASE != kAttend;
   constexpr bool ATTEND = PHASE != kScore;
@@ -326,10 +350,11 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
   const int j_end = min(nblk, (s + 1) * per);
 
   // the first block's loads go out before the set-up below
-  Inflight f;
+  Inflight<CB> f;
   const int* row_table = p.table + (size_t)b * p.W;
   if (j_begin < j_end)
-    issue_block<T, LOADER, PHASE>(p, row_table[j_begin], j_begin, h, bh, f);
+    issue_block<T, LOADER, CB, PHASE>(p, row_table[j_begin], j_begin, h, bh,
+                                      f);
   int blk_next = j_begin + 1 < j_end ? row_table[j_begin + 1] : 0;
 
   if (SCORE) {
@@ -352,9 +377,9 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
 
   for (int j = j_begin; j < j_end; ++j) {
     __syncthreads();  // previous block's kb/vb/ps are consumed (qs, cb set)
-    decode_block<T, LOADER, LUT, PHASE>(p, cb, f, kb, vb, ps);
+    decode_block<T, LOADER, CB, LUT, PHASE>(p, cb, f, kb, vb, ps);
     if (j + 1 < j_end) {  // in flight while this block is computed
-      issue_block<T, LOADER, PHASE>(p, blk_next, j + 1, h, bh, f);
+      issue_block<T, LOADER, CB, PHASE>(p, blk_next, j + 1, h, bh, f);
       blk_next = j + 2 < j_end ? row_table[j + 2] : 0;
     }
     __syncthreads();
@@ -524,10 +549,10 @@ size_t smem_bytes(const Params& p) {
   return floats * sizeof(float);
 }
 
-template <typename T, int LOADER, bool LUT, int PHASE>
+template <typename T, int LOADER, int CB, bool LUT, int PHASE>
 cudaError_t launch_phase(const Params& p, cudaStream_t stream) {
   const size_t smem = smem_bytes(p);
-  auto kern = paged_attention_kernel<T, LOADER, LUT, PHASE>;
+  auto kern = paged_attention_kernel<T, LOADER, CB, LUT, PHASE>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -538,12 +563,12 @@ cudaError_t launch_phase(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int LOADER, bool LUT>
+template <typename T, int LOADER, int CB, bool LUT>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  if (p.S == 1) return launch_phase<T, LOADER, LUT, kFused>(p, stream);
-  cudaError_t e = launch_phase<T, LOADER, LUT, kScore>(p, stream);
+  if (p.S == 1) return launch_phase<T, LOADER, CB, LUT, kFused>(p, stream);
+  cudaError_t e = launch_phase<T, LOADER, CB, LUT, kScore>(p, stream);
   if (e != cudaSuccess) return e;
-  e = launch_phase<T, LOADER, LUT, kAttend>(p, stream);
+  e = launch_phase<T, LOADER, CB, LUT, kAttend>(p, stream);
   if (e != cudaSuccess) return e;
   const int n = p.B * p.Hkv * p.G * p.D;
   fold_kernel<T><<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(p);
@@ -551,14 +576,24 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 }
 
 template <typename T>
-cudaError_t dispatch(int loader, int lut, const Params& p, cudaStream_t s) {
-  switch (loader * 2 + (lut ? 1 : 0)) {
-    case kFp * 2: return launch<T, kFp, false>(p, s);
-    case kFp * 2 + 1: return launch<T, kFp, true>(p, s);
-    case kQ8 * 2: return launch<T, kQ8, false>(p, s);
-    case kQ8 * 2 + 1: return launch<T, kQ8, true>(p, s);
-    case kQ4 * 2: return launch<T, kQ4, false>(p, s);
-    case kQ4 * 2 + 1: return launch<T, kQ4, true>(p, s);
+cudaError_t dispatch(int loader, int lut, int chunk, const Params& p,
+                     cudaStream_t s) {
+  if (chunk == 16) {
+    switch (loader * 2 + (lut ? 1 : 0)) {
+      case kFp * 2: return launch<T, kFp, 16, false>(p, s);
+      case kFp * 2 + 1: return launch<T, kFp, 16, true>(p, s);
+      case kQ8 * 2: return launch<T, kQ8, 16, false>(p, s);
+      case kQ8 * 2 + 1: return launch<T, kQ8, 16, true>(p, s);
+      case kQ4 * 2: return launch<T, kQ4, 16, false>(p, s);
+      case kQ4 * 2 + 1: return launch<T, kQ4, 16, true>(p, s);
+    }
+  } else if (chunk == 4) {  // quantized rows only
+    switch (loader * 2 + (lut ? 1 : 0)) {
+      case kQ8 * 2: return launch<T, kQ8, 4, false>(p, s);
+      case kQ8 * 2 + 1: return launch<T, kQ8, 4, true>(p, s);
+      case kQ4 * 2: return launch<T, kQ4, 4, false>(p, s);
+      case kQ4 * 2 + 1: return launch<T, kQ4, 4, true>(p, s);
+    }
   }
   return cudaErrorInvalidValue;
 }
@@ -569,9 +604,10 @@ cudaError_t dispatch(int loader, int lut, const Params& p, cudaStream_t s) {
 // loader: 0 fp pool, 1 q8 codes, 2 packed q4 codes.  scratch: S > 1 only,
 // f32 of B*Hkv*(G*W*bs + G*W + S*G*D + 2*S*G) floats (scores, block
 // maxima, split accumulators, l_s, C_s).  gr_shift, gc_shift: log2 of the
-// scale tile.  Returns the CUDA error code of the launches (0 on success).
+// scale tile.  chunk: 16 or (q8/q4 only) 4, the bytes of a row each load
+// takes.  Returns the CUDA error code of the launches (0 on success).
 extern "C" int paged_attention_launch(
-    int dtype, int loader, int lut, const void* q, const void* k,
+    int dtype, int loader, int lut, int chunk, const void* q, const void* k,
     const void* v, const void* k_scales, const void* v_scales,
     const void* table, const void* lengths, const void* lut_table,
     const void* codebook, void* out, void* scratch, int B, int Hkv, int G,
@@ -613,9 +649,9 @@ extern "C" int paged_attention_launch(
   p.softcap = softcap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)dispatch<float>(loader, lut, p, s);
-    case 1: return (int)dispatch<__half>(loader, lut, p, s);
-    case 2: return (int)dispatch<__nv_bfloat16>(loader, lut, p, s);
+    case 0: return (int)dispatch<float>(loader, lut, chunk, p, s);
+    case 1: return (int)dispatch<__half>(loader, lut, chunk, p, s);
+    case 2: return (int)dispatch<__nv_bfloat16>(loader, lut, chunk, p, s);
   }
   return (int)cudaErrorInvalidValue;
 }

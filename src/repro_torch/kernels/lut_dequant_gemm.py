@@ -6,7 +6,9 @@ x (M, K) @ (codebook[code] × broadcast scale) with packed int4 codes
 (K, N/2), the weight rounded to x.dtype before an f32-accumulated product.
 For CPU tensors the wrapper runs the plain version
 (:func:`plain_lut_dequant_gemm`); for CUDA tensors it launches the kernel
-or raises.  :func:`plan` picks the kernel from the dtype, the geometry and
+or raises; for ``meta`` tensors (the dry-run) it checks the operands as
+for CUDA and returns an empty output of the kernel's shape and dtype.
+:func:`plan` picks the kernel from the dtype, the geometry and
 M alone: the tensor-core kernel in its small-M (M <= ``SMALL_M``) or
 large-M tiling for bf16/f16 x, the CUDA-core kernel for f32 x.
 ``lut_dequant_gemm.launches`` counts kernel launches, and
@@ -130,7 +132,7 @@ def lut_dequant_gemm(x, codes, scales, codebook, *, scheme: str = "tile",
                 f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
                 f"{'' if t.is_contiguous() else ' (non-contiguous)'}")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    if M == 0:
+    if M == 0 or x.device.type == "meta":
         return out
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, codes, scales))
     pl = plan(M, K, N, x.dtype, scheme, g, aligned)

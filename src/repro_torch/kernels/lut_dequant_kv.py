@@ -6,7 +6,8 @@ token slabs of a tile-quantized KV pool, codes (R, Hkv, Dc) and f16
 scales (R, Hkv//gr, D//gc), become (R, Hkv, D) f32, bit-identical to
 ``kv_quant.dequantize_kv``.  For CPU tensors the wrapper runs the plain
 version (:func:`plain_lut_dequant_kv`); for CUDA tensors it launches the
-kernel or raises.  ``lut_dequant_kv.launches`` counts kernel launches,
+kernel or raises; for ``meta`` tensors (the dry-run) it checks the
+operands as for CUDA and returns an empty output of the kernel's shape.  ``lut_dequant_kv.launches`` counts kernel launches,
 and ``lut_dequant_kv.shapes`` counts them by (mode, R).
 """
 from __future__ import annotations
@@ -36,8 +37,9 @@ def _lib() -> ctypes.CDLL:
 def lut_dequant_kv(codes, scales, codebook, *, mode: str, gr: int, gc: int):
     """codes (R, Hkv, Dc) int8 (q8) or packed uint8 (q4, Dc = D/2), scales
     (R, Hkv//gr, D//gc) f16, codebook (16,) f32 -> (R, Hkv, D) f32.  On
-    CUDA the kernel takes code rows of a multiple of 16 bytes (Dc % 16 ==
-    0) only."""
+    CUDA the kernel takes code rows of a multiple of 4 bytes (Dc % 4 ==
+    0), 4-byte aligned: it reads 4 (q8) or 2 (q4) code bytes per float4 of
+    output."""
     if mode not in _CODE_DTYPES:
         raise ValueError(f"mode must be q8 or q4, got {mode!r}")
     if codes.device.type == "cpu":
@@ -61,11 +63,15 @@ def lut_dequant_kv(codes, scales, codebook, *, mode: str, gr: int, gc: int):
                 f"{name}: expected contiguous {dtype} {shape} on "
                 f"{codes.device}, got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device}{'' if t.is_contiguous() else ' (non-contiguous)'}")
-    if Dc % 16 or codes.data_ptr() % 16:
-        raise ValueError(f"the kernel loads codes in 16-byte chunks: rows of "
-                         f"{Dc} bytes (head_dim {D}, {mode}) or codes not "
-                         f"16-byte aligned are not taken")
+    if Dc % 4:
+        raise ValueError(f"the kernel takes code rows of a multiple of 4 "
+                         f"bytes: rows of {Dc} bytes (head_dim {D}, {mode}) "
+                         f"are not taken")
     out = torch.empty((R, H, D), dtype=torch.float32, device=codes.device)
+    if codes.device.type == "meta":
+        return out
+    if codes.data_ptr() % 4:
+        raise ValueError("the kernel takes codes 4-byte aligned")
     if R == 0:
         return out
     with torch.cuda.device(codes.device):

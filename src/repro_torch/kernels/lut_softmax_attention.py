@@ -7,7 +7,8 @@ with the fp16 online softmax of Alg. 1 over KV blocks of ``bkv`` rows and
 exp by the exp LUT (``lut``), the fp16 polynomial (``poly``) or f32 exp
 (``exact``).  For CPU tensors the wrapper runs the plain version
 (:func:`plain_lut_softmax_attention`); for CUDA tensors it launches the
-kernel or raises.  ``lut_softmax_attention.launches`` counts kernel
+kernel or raises; for ``meta`` tensors (the dry-run) it checks the
+operands as for CUDA and returns an empty output of the kernel's shape.  ``lut_softmax_attention.launches`` counts kernel
 launches, and ``lut_softmax_attention.shapes`` counts them by
 (exp_mode, BH, Sq, Skv, D, kv_group, causal).
 """
@@ -87,7 +88,7 @@ def lut_softmax_attention(q, k, v, lut, *, causal: bool = True,
                            (v, "v", kv_shape)):
         if t.device != q.device or t.dtype != torch.float16 or \
                 tuple(t.shape) != shape or not t.is_contiguous() or \
-                t.data_ptr() % 16:
+                (t.device.type != "meta" and t.data_ptr() % 16):
             raise ValueError(
                 f"{name}: expected a contiguous, 16-byte aligned fp16 "
                 f"{shape} tensor on {q.device}, got {t.dtype} "
@@ -105,10 +106,10 @@ def lut_softmax_attention(q, k, v, lut, *, causal: bool = True,
             raise ValueError("exp_mode='lut' needs the (1, 32768) fp16 exp "
                              "LUT on the device of q "
                              "(repro_torch.kernels.ops.exp_lut(device))")
-        lut_ptr = lut.data_ptr()
-    else:
-        lut_ptr = None
     out = torch.empty_like(q)
+    if q.device.type == "meta":
+        return out
+    lut_ptr = lut.data_ptr() if exp_mode == "lut" else None
     with torch.cuda.device(q.device):
         err = _lib().lut_softmax_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lut_ptr,

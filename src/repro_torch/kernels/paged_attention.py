@@ -7,7 +7,9 @@ block pool through the row's block table, with per-row lengths, a sliding
 window (<= 0 = none), tanh softcap, and an exact f32 or fp16 LUT online
 softmax.  For CPU tensors the wrappers run the plain versions
 (:func:`plain_paged_attention`, :func:`plain_lut_paged_attention`); for
-CUDA tensors they launch the kernel or raise.  The kernel splits each
+CUDA tensors they launch the kernel or raise; for ``meta`` tensors (the
+dry-run) they check the operands as for CUDA and return an empty output
+of the kernel's shape and dtype.  The kernel splits each
 row's blocks over :func:`splits` thread blocks (split-KV: score, attend
 and fold launches; one fused launch when the table has one block).  ``launches`` on each
 wrapper counts calls of the kernel.
@@ -27,7 +29,13 @@ plain_lut_paged_attention = ref.lut_paged_decode_attention_ref
 EXP_MODES = ("exact", "lut")
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _LOADERS = {"fp": 0, "q8": 1, "q4": 2}
-_MAX_BLOCK_BYTES = 4 * 128 * 16  # kMaxChunks x kThreads 16-byte chunks
+# the bytes of a KV head's block row each load takes, and the most bytes
+# of such a block a launch takes: kThreads x kMaxChunks (16-byte chunks)
+# or kMaxChunks4 (4-byte chunks)
+_MAX_BLOCK_BYTES = {16: 4 * 128 * 16, 4: 8 * 128 * 4}
+# the narrowest scale group, in head dims, each chunk width takes (a chunk
+# reads at most 4 scales)
+_MIN_GROUP = {(16, "q8"): 4, (16, "q4"): 8, (4, "q8"): 1, (4, "q4"): 2}
 _MAX_SCORES = 4 * 128            # G x bs: kMaxScores x kThreads
 _MAX_SPLITS = 16
 _TARGET_BLOCKS = 2 * 132         # two thread blocks per H100 SM
@@ -54,7 +62,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.paged_attention_launch
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([I, I, I] + [P] * 11 + [I] * 12
+        fn.argtypes = ([I, I, I, I] + [P] * 11 + [I] * 12
                        + [ctypes.c_float, ctypes.c_float, P])
         fn.restype = ctypes.c_int
     return lib
@@ -90,11 +98,23 @@ def _expect(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(q, k_pool, v_pool, table, lengths, lut, codebook, *, window,
-            softcap, exp_mode, n_splits=None):
-    """Validate the operands and launch the kernel on the current stream,
-    over :func:`splits` splits unless ``n_splits`` says otherwise (the
-    function is the same for every split count; tests and timing only)."""
+def chunk_bytes(row: int, mode: str = "fp", gc: int = 1) -> int:
+    """The bytes of a K/V row each load of the kernel takes: 16 where
+    the row is a multiple of 16 bytes and a 16-byte chunk spans at most 4
+    scale groups, else 4 (quantized rows that are a multiple of 4 bytes,
+    e.g. head_dim 80 at Q4: 40 bytes).  0: no chunk width takes the row."""
+    for cb in (16, 4):
+        if row % cb or (cb == 4 and mode == "fp"):
+            continue
+        if mode == "fp" or gc >= _MIN_GROUP[cb, mode]:
+            return cb
+    return 0
+
+
+def _check(q, k_pool, v_pool, table, lengths, lut, codebook, exp_mode):
+    """Check the operands as the kernel takes them (shapes, dtypes,
+    devices, contiguity and the kernel's limits; not the pointers'
+    alignment).  Returns the launch's geometry."""
     dev = q.device
     if q.dtype not in _DTYPES or q.dim() != 4 or not q.is_contiguous():
         raise ValueError(f"q must be a contiguous (B, Hkv, G, D) tensor of "
@@ -112,48 +132,69 @@ def _launch(q, k_pool, v_pool, table, lengths, lut, codebook, *, window,
         cdt = torch.int8 if mode == "q8" else torch.uint8
         dc = D if mode == "q8" else D // 2
         Hs, Ds = Hkv // gr, D // gc
-        if gc < (16 if mode == "q8" else 32) // 4:
-            raise ValueError(f"the kernel reads at most 4 scale groups per "
-                             f"16-byte chunk of {mode} codes: scale groups "
-                             f"of {gc} head dims are not taken (q8 needs "
-                             f">= 4, q4 >= 8)")
         for name, pool in (("k_pool", k_pool), ("v_pool", v_pool)):
             _expect(pool["codes"], f"{name} codes", cdt, (nb, bs, Hkv, dc),
                     dev)
             _expect(pool["scales"], f"{name} scales", torch.float16,
                     (nb, bs, Hs, Ds), dev)
         k, v = k_pool["codes"], v_pool["codes"]
-        ks, vs = k_pool["scales"].data_ptr(), v_pool["scales"].data_ptr()
+        ks, vs = k_pool["scales"], v_pool["scales"]
         loader = _LOADERS[mode]
     else:
         nb, bs = k_pool.shape[:2]
         for name, pool in (("k_pool", k_pool), ("v_pool", v_pool)):
             _expect(pool, name, q.dtype, (nb, bs, Hkv, D), dev)
         k, v, ks, vs = k_pool, v_pool, None, None
-        gr = gc = Hs = Ds = 1
+        mode, gr, gc, Hs, Ds = "fp", 1, 1, 1, 1
         loader = _LOADERS["fp"]
     if D % 8 or D > 256 or G * bs > _MAX_SCORES:
         raise ValueError(f"the kernel takes head_dim a multiple of 8 up to "
                          f"256 and G x block_size <= {_MAX_SCORES}, got "
                          f"head_dim {D}, G {G}, block_size {bs}")
     row = k.shape[-1] * k.element_size()
-    if row % 16 or k.data_ptr() % 16 or v.data_ptr() % 16 or \
-            bs * row > _MAX_BLOCK_BYTES:
+    cb = chunk_bytes(row, mode, gc)
+    if not cb:
         raise ValueError(
-            f"the kernel loads a K/V block as at most {_MAX_BLOCK_BYTES} "
-            f"bytes of 16-byte chunks: {bs} rows of {row} bytes (head_dim "
-            f"{D}, {k.dtype}) or pools not 16-byte aligned are not taken")
+            f"the kernel loads K/V rows in 16-byte chunks (rows a multiple "
+            f"of 16 bytes; q8 scale groups >= 4 head dims, q4 >= 8) or, "
+            f"for q8/q4 codes, in 4-byte chunks (rows a multiple of 4 "
+            f"bytes; q8 groups >= 1, q4 >= 2): rows of {row} bytes "
+            f"(head_dim {D}, {k.dtype}) with scale groups of {gc} head dims "
+            f"are not taken")
+    if bs * row > _MAX_BLOCK_BYTES[cb]:
+        raise ValueError(
+            f"the kernel loads a K/V block as at most "
+            f"{_MAX_BLOCK_BYTES[cb]} bytes of {cb}-byte chunks: {bs} rows "
+            f"of {row} bytes (head_dim {D}, {k.dtype}) are not taken")
     W = table.shape[1] if table.dim() == 2 else -1
     _expect(table, "table", torch.int32, (B, W), dev)
     _expect(lengths, "lengths", torch.int32, (B,), dev)
-    lut_ptr = None
     if exp_mode == "lut":
         _expect(lut, "lut", torch.float16, (1, ref.LUT_SIZE), dev)
-        lut_ptr = lut.data_ptr()
-    cb_ptr = None
     if loader == _LOADERS["q4"]:
         _expect(codebook, "codebook", torch.float32, (16,), dev)
-        cb_ptr = codebook.data_ptr()
+    _log2(gr, "gr")
+    _log2(gc, "gc")
+    return dict(B=B, Hkv=Hkv, G=G, D=D, bs=bs, W=W, Hs=Hs, Ds=Ds, gr=gr,
+                gc=gc, k=k, v=v, ks=ks, vs=vs, loader=loader, cb=cb)
+
+
+def _launch(q, k_pool, v_pool, table, lengths, lut, codebook, *, window,
+            softcap, exp_mode, n_splits=None):
+    """Validate the operands and launch the kernel on the current stream,
+    over :func:`splits` splits unless ``n_splits`` says otherwise (the
+    function is the same for every split count; tests and timing only)."""
+    dev = q.device
+    g = _check(q, k_pool, v_pool, table, lengths, lut, codebook, exp_mode)
+    B, Hkv, G, D, bs, W = (g[n] for n in ("B", "Hkv", "G", "D", "bs", "W"))
+    k, v, ks, vs, cb = g["k"], g["v"], g["ks"], g["vs"], g["cb"]
+    if k.data_ptr() % cb or v.data_ptr() % cb:
+        raise ValueError(f"the kernel loads {cb}-byte chunks of the pools: "
+                         f"pools not {cb}-byte aligned are not taken")
+    ks = None if ks is None else ks.data_ptr()
+    vs = None if vs is None else vs.data_ptr()
+    lut_ptr = lut.data_ptr() if exp_mode == "lut" else None
+    cb_ptr = codebook.data_ptr() if g["loader"] == _LOADERS["q4"] else None
     out = torch.empty_like(q)
     if B == 0:
         return out
@@ -167,11 +208,12 @@ def _launch(q, k_pool, v_pool, table, lengths, lut, codebook, *, window,
                               dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _lib().paged_attention_launch(
-            _DTYPES[q.dtype], loader, int(exp_mode == "lut"), q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), ks, vs, table.data_ptr(),
-            lengths.data_ptr(), lut_ptr, cb_ptr, out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), B, Hkv, G, D,
-            bs, W, Hs, Ds, _log2(gr, "gr"), _log2(gc, "gc"), int(window), S,
+            _DTYPES[q.dtype], g["loader"], int(exp_mode == "lut"), cb,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ks, vs,
+            table.data_ptr(), lengths.data_ptr(), lut_ptr, cb_ptr,
+            out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            B, Hkv, G, D, bs, W, g["Hs"], g["Ds"], _log2(g["gr"], "gr"),
+            _log2(g["gc"], "gc"), int(window), S,
             1.0 / math.sqrt(D), float(softcap),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -194,6 +236,9 @@ def paged_attention(q, k_pool, v_pool, table, lengths, lut=None, *,
     if isinstance(k_pool, dict):
         raise ValueError("paged_attention takes fp pools; quantized pools "
                          "go to quant_paged_attention")
+    if q.device.type == "meta":
+        _check(q, k_pool, v_pool, table, lengths, lut, None, exp_mode)
+        return torch.empty_like(q)
     out = _launch(q, k_pool, v_pool, table, lengths, lut, None,
                   window=window, softcap=softcap, exp_mode=exp_mode)
     paged_attention.launches += 1
@@ -216,6 +261,9 @@ def quant_paged_attention(q, k_pool, v_pool, table, lengths, lut=None,
                       softcap, exp_mode)
     if not isinstance(k_pool, dict):
         raise ValueError("quant_paged_attention takes quantized pools")
+    if q.device.type == "meta":
+        _check(q, k_pool, v_pool, table, lengths, lut, codebook, exp_mode)
+        return torch.empty_like(q)
     out = _launch(q, k_pool, v_pool, table, lengths, lut, codebook,
                   window=window, softcap=softcap, exp_mode=exp_mode)
     quant_paged_attention.launches += 1

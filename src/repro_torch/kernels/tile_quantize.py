@@ -9,7 +9,8 @@ weight over its f32 scale), not the offline quantizer's nearest-code
 search in ``quant/tile_quant``; the two agree on all but a few codes.
 For CPU tensors the wrapper runs the plain version
 (:func:`plain_tile_quantize`); for CUDA tensors it launches the kernel or
-raises.  ``tile_quantize.launches`` counts kernel launches, and
+raises; for ``meta`` tensors (the dry-run) it checks the operand as for
+CUDA and returns empty codes and scales of the kernel's shapes.  ``tile_quantize.launches`` counts kernel launches, and
 ``tile_quantize.shapes`` counts them by (K, N).  :func:`empty_launch`
 launches an empty kernel on the grid the kernel takes: the launch floor
 its time is read against.
@@ -74,12 +75,15 @@ def _launch(w: torch.Tensor, wide: bool):
     """Launch the kernel, with 256-byte L2 fetches if ``wide``; the timing
     sweep reaches the load the wrapper does not pick through here."""
     K, N = w.shape
-    if w.dtype not in _DTYPES or not w.is_contiguous() or w.data_ptr() % 16:
+    if w.dtype not in _DTYPES or not w.is_contiguous() or \
+            (w.device.type != "meta" and w.data_ptr() % 16):
         raise ValueError(f"w: expected a contiguous, 16-byte aligned tensor "
                          f"of {list(_DTYPES)}, got {w.dtype}")
     codes = torch.empty((K, N // 2), dtype=torch.uint8, device=w.device)
     scales = torch.empty((K // 2, N // 16), dtype=torch.float16,
                          device=w.device)
+    if w.device.type == "meta":
+        return codes, scales
     with torch.cuda.device(w.device):
         err = _lib().tile_quantize_launch(
             _DTYPES[w.dtype], w.data_ptr(), codes.data_ptr(),

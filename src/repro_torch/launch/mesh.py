@@ -70,3 +70,14 @@ def make_host_mesh(n_data: int = 1, n_model: int = 1, *,
     port's collectives stage a gloo group's CUDA tensors through the
     host either way)."""
     return _mesh((n_data, n_model), ("data", "model"), device_type)
+
+
+def abstract_production_mesh(*, multi_pod: bool = False):
+    """The production mesh's axes and sizes with no process group behind
+    it (``sharding.AbstractMesh``): the dry-run runs rank 0's program over
+    it on the ``meta`` device."""
+    from repro_torch.distributed.sharding import AbstractMesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return AbstractMesh(shape, axes)

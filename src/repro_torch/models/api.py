@@ -16,6 +16,8 @@ device=)``, ``forward``, ``prefill(cache=)`` over dense rows from
 
 ``forward(..., return_aux=True)`` appends the auxiliary loss (an MoE
 transformer's load-balancing term, zero elsewhere), which training adds.
+``abstract_params`` and ``abstract_cache`` are the trees on the ``meta``
+device (the JAX models' ``abstract_params`` / ``abstract_cache``).
 """
 from __future__ import annotations
 
@@ -39,3 +41,12 @@ def abstract_params(cfg: ModelConfig) -> dict:
     """The parameter tree of ``cfg`` on the ``meta`` device: shapes and
     dtypes only, no storage (a checkpoint's restore template)."""
     return get_model(cfg).init_params(cfg, device="meta")
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+                   *, t_enc: int = 0) -> dict:
+    """The dense decode cache of ``cfg`` (``init_cache``) on the ``meta``
+    device; ``t_enc`` sizes a Whisper cache's cross K/V rows."""
+    kw = {"t_enc": t_enc} if cfg.family == "encdec" else {}
+    return get_model(cfg).init_cache(cfg, batch, max_len, dtype,
+                                     device="meta", **kw)

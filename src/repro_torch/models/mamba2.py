@@ -340,7 +340,8 @@ def _train_layer(lp, x, cfg):
 
 def forward(params, tokens, cfg: ModelConfig, *,
             logit_positions: Optional[torch.Tensor] = None,
-            return_kv: bool = False, return_aux: bool = False):
+            return_kv: bool = False, return_aux: bool = False,
+            embeddings: Optional[torch.Tensor] = None):
     """Full-sequence forward.  tokens: (B, S).  Returns (logits, (states,
     kvs)): logits (B, S, V) f32, or (B, V) at ``logit_positions`` (B,);
     with ``return_kv`` the per-layer (conv, ssm) final states and the
@@ -348,7 +349,9 @@ def forward(params, tokens, cfg: ModelConfig, *,
     empty lists.  ``return_aux`` appends a zero auxiliary loss, as the
     JAX package returns.  With ``cfg.remat == "full"`` and activations
     that carry gradients (training), each Mamba2 layer runs under
-    ``torch.utils.checkpoint``."""
+    ``torch.utils.checkpoint``.  ``embeddings`` is taken and ignored, as
+    the JAX package's ``forward`` takes it: the family has no modality
+    frontend."""
     x = L.embed(params["embedding"], tokens, getattr(torch, cfg.dtype))
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
@@ -386,10 +389,8 @@ def prefill(params, tokens, cfg: ModelConfig, *, lengths, cache: dict,
     padded prompts of unequal length leave pad tokens in a shorter row's
     state, as in the JAX package (whose scheduler pads every prompt to
     its ``prompt_len``); the shared block's KV of the first S slots is
-    written whole and masked later by the rows' lengths."""
-    if embeddings is not None:
-        raise NotImplementedError(f"the {cfg.family!r} family has no "
-                                  f"modality-stub frontend")
+    written whole and masked later by the rows' lengths.  ``embeddings``
+    is ignored (see :func:`forward`)."""
     logits, (states, kvs) = forward(params, tokens, cfg,
                                     logit_positions=lengths - 1,
                                     return_kv=True)

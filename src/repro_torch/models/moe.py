@@ -87,7 +87,10 @@ def dispatch_slots(ids: torch.Tensor, m: MoEConfig):
     flat = ids.reshape(T * k)
     order = torch.argsort(flat, stable=True)        # picks sorted by expert
     sorted_ids = flat[order]
-    counts = torch.bincount(flat, minlength=E)
+    # per-expert counts (bincount's, as a scatter: the same on every
+    # device, ``meta`` included, where bincount's shape is data-dependent)
+    counts = torch.zeros(E, dtype=flat.dtype, device=flat.device)
+    counts.index_add_(0, flat, torch.ones_like(flat))
     starts = torch.cumsum(counts, 0) - counts        # exclusive per expert
     pos = torch.arange(T * k, device=ids.device) - starts[sorted_ids]
     slot = torch.where(pos < C, sorted_ids * C + pos,

@@ -162,16 +162,16 @@ def forward(params, tokens, cfg: ModelConfig, *,
             logit_positions: Optional[torch.Tensor] = None,
             return_kv: bool = False, prefix: Optional[dict] = None,
             embeddings: Optional[torch.Tensor] = None,
-            return_aux: bool = False, par=None):
+            return_aux: bool = False, par=None, row_axes="batch"):
     """Full-sequence forward.  tokens: (B, S).  Returns (logits, kvs):
     logits (B, S, V) f32, or (B, V) at ``logit_positions`` (B,); kvs as
     :func:`trunk` returns them.  ``return_aux`` appends the summed MoE
     load-balancing loss of the layers (zero without MoE), which the JAX
-    package's ``forward`` returns and training adds.  ``par``: see
-    :func:`trunk`."""
+    package's ``forward`` returns and training adds.  ``par``,
+    ``row_axes``: see :func:`trunk`."""
     x, kvs, aux = trunk(params, tokens, cfg, return_kv=return_kv,
                         prefix=prefix, embeddings=embeddings,
-                        return_aux=True, par=par)
+                        return_aux=True, par=par, row_axes=row_axes)
     if logit_positions is not None:
         B = tokens.shape[0]
         x = x[torch.arange(B, device=x.device), logit_positions.long()]
@@ -182,7 +182,7 @@ def forward(params, tokens, cfg: ModelConfig, *,
 def trunk(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
           prefix: Optional[dict] = None,
           embeddings: Optional[torch.Tensor] = None,
-          return_aux: bool = False, par=None):
+          return_aux: bool = False, par=None, row_axes="batch"):
     """The layers and final norm, without the LM head (the reward model
     puts its own head on them).  tokens: (B, S).  Returns (x, kvs): x
     (B, S, d_model) in ``cfg.dtype``; kvs the per-layer rope'd (k, v) of
@@ -207,11 +207,14 @@ def trunk(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
 
     ``par``: a mesh, under which ``tokens`` are this rank's rows of a
     batch split over ``par.spec("batch")`` (the sharded train step's
-    layout).  Only an MoE layer's math depends on it (``moe_ffn``: its
-    token shards and its experts' ff split); the rest is per row."""
+    layout; ``row_axes`` names other axes, None the whole batch).  Only an
+    MoE layer's math depends on it (``moe_ffn``: its token shards and its
+    experts' ff split); the rest is per row."""
     dtype = getattr(torch, cfg.dtype)
-    row_axes = par.spec("batch")[0] if par is not None and \
-        par.mesh is not None else None
+    if par is None or par.mesh is None:
+        row_axes = None
+    elif row_axes == "batch":
+        row_axes = par.spec("batch")[0]
     x = L.embed(params["embedding"], tokens, dtype)
     if embeddings is not None:
         if prefix is not None:
@@ -312,7 +315,8 @@ def _scatter_suffix_blocks(pool, kv, table, block_size: int, start) -> None:
 def prefill(params, tokens, cfg: ModelConfig, *, lengths,
             paged: Optional[dict] = None, cache: Optional[dict] = None,
             prefix: Optional[dict] = None,
-            embeddings: Optional[torch.Tensor] = None):
+            embeddings: Optional[torch.Tensor] = None, par=None,
+            row_axes="batch"):
     """Run right-padded prompts and write their KV into a cache, in place.
     Exactly one of ``paged`` and ``cache`` is given.
 
@@ -329,7 +333,9 @@ def prefill(params, tokens, cfg: ModelConfig, *, lengths,
     prefill, paged only; ``tokens``/``lengths`` then describe only the
     uncached suffix, whose KV is written into the table at offset
     ``prefix["len"]`` while the cached positions stay untouched.
-    ``embeddings``: the modality-stub prefix of :func:`trunk`."""
+    ``embeddings``: the modality-stub prefix of :func:`trunk`.  ``par``,
+    ``row_axes``: the rows are this rank's of a batch split over
+    ``row_axes`` (:func:`trunk`; the dry-run's prefill under a mesh)."""
     from repro_torch.serving.kv_quant import pool_block_size
 
     if (paged is None) == (cache is None):
@@ -339,7 +345,7 @@ def prefill(params, tokens, cfg: ModelConfig, *, lengths,
                          "paged cache layout")
     logits, kvs = forward(params, tokens, cfg, logit_positions=lengths - 1,
                           return_kv=True, prefix=prefix,
-                          embeddings=embeddings)
+                          embeddings=embeddings, par=par, row_axes=row_axes)
     if cache is not None:
         S = tokens.shape[1]
         for layer, (k, v) in enumerate(kvs):

@@ -62,6 +62,24 @@ def _stacked(fn, w: torch.Tensor) -> dict:
         *lead, *parts[0][k].shape) for k in parts[0]}
 
 
+_META_LEAVES: dict = {}
+
+
+def _meta_quantized(fn, key, w: torch.Tensor) -> dict:
+    """``fn``'s leaf for a ``meta`` weight (any leading dims): the
+    quantizer runs once per (K, N) matrix shape and dtype, and each part
+    of its result is an empty ``meta`` tensor behind ``w``'s leading
+    dims, as ``_stacked`` stacks them."""
+    k = key + (tuple(w.shape[-2:]), w.dtype)
+    if k not in _META_LEAVES:
+        _META_LEAVES[k] = {n: (tuple(t.shape), t.dtype) for n, t in
+                           fn(torch.empty(w.shape[-2:], dtype=w.dtype,
+                                          device="meta")).items()}
+    lead = tuple(w.shape[:-2])
+    return {n: torch.empty(lead + shape, dtype=dtype, device="meta")
+            for n, (shape, dtype) in _META_LEAVES[k].items()}
+
+
 def quantize_model_params(params, *, scheme: str = "tile",
                           codebook: str = "q4_0", group_size: int = 32,
                           policy=None):
@@ -69,7 +87,8 @@ def quantize_model_params(params, *, scheme: str = "tile",
     per-layer lists).  Returns a new tree in which quantized leaves are
     dicts {"codes", "scales"[, "codebook"]}; each weight is quantized on
     its own device, one layer at a time, and a stacked weight of rank 3
-    or 4 (experts) one matrix at a time."""
+    or 4 (experts) one matrix at a time.  ``meta`` weights (shapes only:
+    the dry-run) are quantized once per matrix shape."""
     policy = policy or DEFAULT_POLICY
 
     def decide(path: str):
@@ -92,6 +111,9 @@ def quantize_model_params(params, *, scheme: str = "tile",
                                        group_size=group_size)
         else:
             fn = lambda w: TQ.quantize_q8(w, group_size=group_size)
+        if node.device.type == "meta":
+            return _meta_quantized(fn, (sch, scheme, codebook, group_size),
+                                   node)
         return fn(node) if node.ndim == 2 else _stacked(fn, node)
 
     return walk(params, "")

@@ -85,8 +85,10 @@ def _local_gumbel_max(logits_loc, seed: int, temperature: float, axis,
     from repro_torch.distributed import collectives as C
 
     shard = C.axis_index(axis, mesh)
-    gen = torch.Generator(device=logits_loc.device)
-    gen.manual_seed(int(seed) * 1_000_003 + shard)
+    gen = None  # a meta tensor (the dry-run) draws nothing
+    if logits_loc.device.type != "meta":
+        gen = torch.Generator(device=logits_loc.device)
+        gen.manual_seed(int(seed) * 1_000_003 + shard)
     u = torch.rand(logits_loc.shape, generator=gen,
                    device=logits_loc.device)
     g = -torch.log(-torch.log(u.clamp(1e-20, 1.0)))
@@ -122,8 +124,10 @@ def distributed_sample(logits: torch.Tensor, seed: int, sc: SamplerConfig,
 
     if par is None or par.mesh is None or "model" not in par.axes or \
             logits.shape[-1] % par.n_model:
-        gen = torch.Generator(device=logits.device)
-        gen.manual_seed(int(seed))
+        gen = None
+        if logits.device.type != "meta":
+            gen = torch.Generator(device=logits.device)
+            gen.manual_seed(int(seed))
         return sample(logits, gen, sc)
     vps = logits.shape[-1] // par.n_model
     batch_axes = par.batch_axes_for(logits.shape[0])

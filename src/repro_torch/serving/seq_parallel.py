@@ -39,13 +39,17 @@ def _seq_shard_attention(q, new_k, new_v, cache_k, cache_v, cache_len,
     base = C.axis_index(axis, mesh) * S_loc  # global slot of local row 0
 
     # -- write the current token's K/V into whichever shard owns the slot
+    # (a row that does not own its slot writes back what its clamped slot
+    # holds: no data-dependent shapes, so it runs on ``meta`` too)
     target = cache_len.long() - 1
     slot = target % ring_size if ring_size else target
     owns = (slot >= base) & (slot < base + S_loc)
-    rows = torch.arange(B, device=q.device)[owns]
-    local = (slot - base)[owns]
+    rows = torch.arange(B, device=q.device)
+    local = torch.clamp(slot - base, 0, S_loc - 1)
     for cache, new in ((cache_k, new_k), (cache_v, new_v)):
-        cache[rows, local] = new[rows, 0].to(cache.dtype)
+        cache[rows, local] = torch.where(owns[:, None, None],
+                                         new[:, 0].to(cache.dtype),
+                                         cache[rows, local])
 
     # -- partial attention over the local slice
     slots = base + torch.arange(S_loc, device=q.device)[None]

@@ -131,7 +131,9 @@ class _View(Mapping):
     level layer stack reads as a list of per-layer views, whose leaves
     are gathered each time the model reads them (under remat, again in
     the backward's recompute); a leaf outside the layers is gathered once
-    per view (the tied embedding serves the lookup and the LM head)."""
+    per view (the tied embedding serves the lookup and the LM head).  A
+    quantized leaf ({"codes", "scales"[, "codebook"]}) reads as a dict of
+    its gathered parts."""
 
     def __init__(self, blocks, specs, par, layer=None, memo=None):
         self._b, self._s, self._par, self._layer = blocks, specs, par, layer
@@ -139,10 +141,15 @@ class _View(Mapping):
 
     def __getitem__(self, k):
         b, s = self._b[k], self._s[k]
+        if isinstance(b, dict) and "codes" in b:  # a quantized leaf, whole
+            return {n: self._leaf(b[n], s[n]) for n in b}
         if isinstance(b, dict):
             if self._layer is None and _is_layer_stack(k):
                 return _Layers(b, s, self._par)
             return _View(b, s, self._par, self._layer, self._memo)
+        return self._leaf(b, s)
+
+    def _leaf(self, b, s):
         if self._memo is None:
             return _gather(b, s, self._par, self._layer)
         if id(b) not in self._memo:
@@ -274,12 +281,15 @@ def make_train_step(cfg: ModelConfig, oc: AdamWConfig,
     metrics are the microbatches' means.  ``grad_transform`` maps the
     grads between accumulation and the optimizer.
 
-    Under a mesh, ``params`` and the moments are this rank's blocks
-    (:func:`shard_params`; ``specs`` default to ``param_specs`` of the
-    config's tree), ``batch`` is the *global* batch (the same on every
-    rank; each microbatch's rows are split over ``par.spec("batch")``),
-    and ``grad_transform`` gets the blocks' finished grads."""
-    if _sharded(par):
+    Under a mesh, or given ``specs``, ``params`` and the moments are this
+    rank's blocks in the JAX layout (:func:`shard_params`; ``specs``
+    default to ``param_specs`` of the config's tree; with no mesh the
+    blocks are the whole leaves), ``batch`` is the *global* batch (the
+    same on every rank; each microbatch's rows are split over
+    ``par.spec("batch")``), and ``grad_transform`` gets the blocks'
+    finished grads."""
+    if _sharded(par) or specs is not None:
+        par = par or ParallelContext()
         return _make_sharded_step(cfg, oc, par, microbatches, grad_transform,
                                   specs)
 

@@ -58,8 +58,13 @@ def _to(x, dev):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["fp", "q8", "q4"])
 @pytest.mark.parametrize("exp_mode", ["exact", "lut"])
-@pytest.mark.parametrize("shape", [dict(), dict(Hkv=1, G_=6, D=32, bs=32)])
+@pytest.mark.parametrize("shape", [dict(), dict(Hkv=1, G_=6, D=32, bs=32),
+                                   dict(Hkv=32, G_=1, D=80, bs=16),
+                                   dict(Hkv=1, G_=6, D=8)])
 def test_cuda_paged_attention_matches_plain(cuda, kind, exp_mode, shape):
+    """Ragged rows with a window; the third shape is stablelm-3b's (Hkv
+    32, head_dim 80: 40-byte Q4 and 80-byte Q8 code rows, loaded in 4-byte
+    chunks), the fourth head_dim 8 (8- and 4-byte code rows)."""
     args = _case(kind, **shape)
     want = PA._plain(*args, ops.exp_lut() if exp_mode == "lut" else None,
                      5, 0.0, exp_mode)
@@ -99,14 +104,20 @@ def test_cuda_wrappers_reject_cpu_mixed_operands(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["q8", "q4"])
 def test_cuda_paged_attention_rejects_short_rows(cuda, kind):
-    """head_dim 8 gives 8-byte (q8) or 4-byte (q4) code rows, which the
-    kernel's 16-byte loads do not take; the plain version covers that
-    geometry on the CPU (test_torch_kernels.py).  Nor does it take a block
-    of more than 8 KiB (here 64 rows of f32 head_dim 64)."""
-    args = [_to(a, cuda) for a in _case(kind, Hkv=1, G_=6, D=8)]
-    with pytest.raises(ValueError, match="16-byte"):
-        PA.quant_paged_attention(*args, None, ops.q4_codebook(cuda),
-                                 exp_mode="exact")
+    """Code rows that are not a multiple of 16 bytes load in 4-byte
+    chunks, at most 4 KiB of a KV head's block (here 128 rows of head_dim
+    40: 40-byte q8 rows, 20-byte q4 rows only at 256 rows, past G x bs);
+    16-byte chunks take at most 8 KiB (here 64 rows of f32 head_dim 64)."""
+    args = [_to(a, cuda) for a in _case(kind, Hkv=1, G_=1, D=40, bs=128)]
+    if kind == "q8":
+        with pytest.raises(ValueError, match="4-byte"):
+            PA.quant_paged_attention(*args, None, ops.q4_codebook(cuda),
+                                     exp_mode="exact")
+    else:
+        got = PA.quant_paged_attention(*args, None, ops.q4_codebook(cuda),
+                                       exp_mode="exact")
+        want = PA._plain(*args, None, 0, 0.0, "exact")
+        torch.testing.assert_close(got, want, atol=ATOL["exact"], rtol=0)
     args = [_to(a, cuda) for a in _case("fp", bs=64, D=64)]
     with pytest.raises(ValueError, match="16-byte"):
         PA.paged_attention(*args, None, exp_mode="exact")
@@ -134,13 +145,16 @@ def test_cuda_lut_dequant_kv_matches_plain_bitwise(cuda, mode, R):
 
 
 # (mode, R, Hkv, D, gc): a partial warp (q8 R5 x 1 x 16 and q4 R3 x 1 x
-# 32 are 20 and 24 float4s of output), partial blocks, and scale groups of
-# 1 and 2 dims (one scale per element, not per float4)
+# 32 are 20 and 24 float4s of output), partial blocks, scale groups of 1
+# and 2 dims (one scale per element, not per float4), stablelm-3b's slab
+# (Hkv 32, D 80: 40-byte q4 rows) and head_dim 8 (4-byte q4 rows)
 K4_EDGES = [("q8", 5, 1, 16, 16), ("q4", 3, 1, 32, 16),
             ("q8", 37, 2, 128, 16), ("q4", 37, 2, 128, 16),
             ("q8", 300, 2, 64, 2), ("q4", 300, 2, 64, 2),
             ("q8", 9, 4, 96, 1), ("q4", 9, 4, 96, 1),
-            ("q8", 1000, 2, 128, 4), ("q4", 1000, 2, 128, 4)]
+            ("q8", 1000, 2, 128, 4), ("q4", 1000, 2, 128, 4),
+            ("q8", 37, 32, 80, 16), ("q4", 37, 32, 80, 16),
+            ("q8", 9, 1, 8, 8), ("q4", 9, 1, 8, 8)]
 
 
 @pytest.mark.gpu
@@ -172,10 +186,11 @@ def test_cuda_lut_dequant_kv_is_deterministic(cuda, mode):
 
 @pytest.mark.gpu
 def test_cuda_lut_dequant_kv_rejects_short_rows(cuda):
-    """head_dim 8 gives 4-byte q4 code rows, which the kernel's 16-byte
-    loads do not take (the plain version covers them on the CPU)."""
-    q = _to(quantize_kv(torch.randn((4, 1, 8)), mode="q4", gr=1, gc=8), cuda)
-    with pytest.raises(ValueError, match="16-byte"):
+    """head_dim 4 gives 2-byte q4 code rows, which the kernel does not
+    take (rows of a multiple of 4 bytes only; the plain version covers
+    them on the CPU)."""
+    q = _to(quantize_kv(torch.randn((4, 1, 4)), mode="q4", gr=1, gc=4), cuda)
+    with pytest.raises(ValueError, match="multiple of 4 bytes"):
         ops.lut_dequant_gather(q)
 
 
@@ -503,8 +518,10 @@ def test_cuda_paged_attention_is_deterministic(cuda, kind, exp_mode):
 @pytest.mark.parametrize("kind", ["q8", "q4"])
 def test_cuda_quant_paged_attention_small_scale_groups(cuda, kind):
     """A pool of QuantKVPool(group_size=8) (scale groups of 4 head dims):
-    q8 (at most 4 groups per 16-byte chunk) matches the plain version,
-    q4 (8 groups per chunk) is refused rather than read wrongly."""
+    q8 (at most 4 groups per 16-byte chunk) matches the plain version, and
+    so does q4, whose 16-byte chunk would span 8 groups and which loads in
+    4-byte chunks (2 groups each); q4 groups of 1 head dim are refused
+    rather than read wrongly."""
     gen = torch.Generator().manual_seed(5)
     B, Hkv, G_, D, bs, W = 2, 2, 3, 32, 4, 3
     q = torch.randn((B, Hkv, G_, D), generator=gen) * 0.5
@@ -518,9 +535,13 @@ def test_cuda_quant_paged_attention_small_scale_groups(cuda, kind):
     args = [_to(a, cuda) for a in (q, kp, vp, table, lens)]
     cb = ops.q4_codebook(cuda)
     if kind == "q4":
+        gr1, gc1 = kv_tile_geometry(Hkv, D, group_size=2)
+        one = [_to(quantize_kv(torch.randn((1 + B * W, bs, Hkv, D),
+                                           generator=gen),
+                               mode=kind, gr=gr1, gc=gc1), cuda)
+               for _ in range(2)]
         with pytest.raises(ValueError, match="scale groups"):
-            PA.quant_paged_attention(*args, None, cb)
-        return
+            PA.quant_paged_attention(args[0], *one, *args[3:], None, cb)
     got = PA.quant_paged_attention(*args, None, cb)
     want = PA._plain(*args, None, 0, 0.0, "exact")
     torch.cuda.synchronize()

@@ -295,11 +295,27 @@ def test_init_params_distributions_and_layout():
         M.init_params(R.get_config("qwen2.5-1.5b", smoke=True), device="cpu")
 
 
-def test_prefill_refuses_modality_embeddings():
-    cfg = R.get_config("mamba2-130m", smoke=True)
-    p = M.init_params(cfg, seed=0, device="cpu")
-    toks = torch.ones((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="modality"):
-        M.prefill(p, toks, cfg, lengths=torch.tensor([4]),
-                  cache=M.init_cache(cfg, 1, 8, device="cpu"),
-                  embeddings=torch.zeros((1, 2, 64)))
+def test_prefill_refuses_modality_embeddings(model):
+    """``embeddings=`` is taken and ignored, as the reference's
+    ``forward`` takes it (the family has no modality frontend): prefill
+    with the argument gives the logits and every cache leaf of prefill
+    without it, bit for bit, and the logits of the reference's
+    ``forward`` given the same embeddings."""
+    jcfg, cfg, jp, tp, _, _ = model("mamba2-130m")
+    rng = np.random.default_rng(23)
+    toks = rng.integers(3, 300, (2, 6)).astype(np.int32)
+    emb = rng.standard_normal((2, 3, cfg.d_model)).astype(np.float32)
+    lens = torch.tensor([6, 6], dtype=torch.int32)
+    runs = []
+    for kw in ({}, {"embeddings": torch.from_numpy(emb)}):
+        cache = M.init_cache(cfg, 2, 8, device="cpu")
+        logits = M.prefill(tp, torch.from_numpy(toks), cfg, lengths=lens,
+                           cache=cache, **kw)
+        runs.append((logits, cache))
+    (plain, pc), (got, gc) = runs
+    assert torch.equal(got, plain)
+    for name in pc:
+        assert torch.equal(gc[name], pc[name]), name
+    jfwd = jax.jit(lambda p, t, e: JM.forward(p, t, jcfg, embeddings=e)[0])
+    want = jfwd(jp, jnp.asarray(toks), jnp.asarray(emb))[:, -1]
+    _close(got, want, "prefill logits vs forward(embeddings=)")
