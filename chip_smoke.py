@@ -32,7 +32,8 @@ Phases, one JSON line each:
    and at olmoe-1b-7b's decode shape (Hkv 16, G 1) on the two paths that
    serve it (Q8 exact, Q4 LUT), and at stablelm-3b's (Hkv 32, G 1, head
    dim 80: 40-byte Q4 code rows, loaded in 4-byte chunks) on Q4 pools in
-   both softmaxes; the GEMM and the KV dequant run after
+   both softmaxes, and at the ``long`` path's 32,768-token Q8 cache (one
+   row, 2,049 blocks); the GEMM and the KV dequant run after
    phase 6, at the shapes its runs launched them with, the GEMM and its
    library call timed hot (one weight back to back) and cold (a rotation
    over weight copies past the 50 MB L2), with the GEMM's regime;
@@ -100,23 +101,37 @@ Phases, one JSON line each:
    serves it (2 clips of random frames prefilled with 4-token prompts on
    dense rows, forked x 4, 48 tokens): exactly 84 K3 launches per
    prefill (42 at M = 3000) and 42 per decode step, every row finished.
+   Then ``long`` (``long_phase``): qwen2.5-1.5b W4A16 on a Q8 pool, one
+   prompt of 32,704 random seed-0 tokens prefilled through the chunked
+   attention (168 K3 at M = 32,704), 64 greedy steps to a 32,768-token
+   cache (28 K2 and 168 K3 a step), and the last prompt position's
+   logits held against a prefill of one token fewer plus one decode step
+   over the Q8 pool and over a bf16 pool (``LONG_LOGIT_RTOL``; the
+   argmax equal, or the top-2 gap at most ``SPEC_GAP``); prefill ms,
+   decode tok/s, peak bytes and the attention's working set from its
+   tile shapes.
    Then ``train``: ``repro_torch.launch.train`` at qwen2.5-1.5b's
    published width, 6 steps of batch 8 x 128 (finite losses and grad
    norms, every param leaf but the key biases changed; step ms, tokens/s,
    peak bytes), the trained params saved as a checkpoint and restored
    (bytes and seconds), ``serve --ckpt`` Best-of-8 from it (W4A16, Q8 KV,
-   ``train/serve-ckpt``), and a 4-layer run resumed after a relaunch at
-   step 4 (all under a temp dir in ``build/``, removed).  Then ``dist``,
+   ``train/serve-ckpt``), a 4-layer run resumed after a relaunch at
+   step 4 (all under a temp dir in ``build/``, removed), and a run at
+   train_4k's sequence length (``train_4k``: 3 steps of 2 x 4096, step
+   ms and peak bytes beside ``TRAIN_4K_PREDICTED``).  Then ``dist``,
    the distributed layer on ranks that share the card over ``gloo``
    (``torch.distributed.run``; every collective through the host): the
    same ``launch/train.py`` run (3 steps of 8 x 128, its depth cut to
-   ``DIST_TRAIN_LAYERS``) with ``--mesh 2x2`` against one rank, each
-   step's loss within ``TRAIN_RTOL`` and each rank's peak bytes; then 2
-   ranks: qwen2.5-1.5b W4A16 at its published width and depth decoding
-   sequence-parallel over a dense bf16 cache split over "data" (8 rows,
-   32 steps, teacher-forced with a one-rank decode's tokens, held to it
-   by the ``SPEC_GAP`` rule, exactly 168 K3 launches a step on each
-   rank: ``dist/seqpar``), ``distributed_sample`` over the 151,936-wide
+   ``DIST_TRAIN_LAYERS``) with ``--mesh 2x2`` (tensor parallel, the
+   residual sequence-sharded) against one rank, each step's loss within
+   ``TRAIN_RTOL`` and each rank's peak bytes; then 2 ranks:
+   qwen2.5-1.5b W4A16 at its published width and depth decoding tensor
+   parallel on a 1 x 2 mesh, each rank's weight blocks on "model", over a
+   dense bf16 cache split along the sequence over "model" (8 rows, 32
+   steps, teacher-forced with a one-rank decode's tokens, held to it by
+   the ``SPEC_GAP`` rule, exactly 168 K3 launches a step on each rank at
+   the sharded shapes, each rank's recorded collectives equal to the
+   dry-run's count of the same program on meta: ``dist/seqpar``), ``distributed_sample`` over the 151,936-wide
    vocab (greedy = argmax, ties included), olmoe-1b-7b (2 layers) under
    a 1 x 2 mesh with tp against no mesh, ``compressed_psum`` of 64 MB
    against ``psum``, and the 2 x 2 checkpoint restored onto 1 x 2 and
@@ -2038,6 +2053,272 @@ def whisper_run(dev: str = "cuda") -> dict:
             "kv_geom": (cfg.n_kv_heads, cfg.resolved_head_dim())}
 
 
+# ---------------------------------------------------------------------------
+# long: a 32k-token prompt of qwen2.5-1.5b through the chunked attention
+# ---------------------------------------------------------------------------
+
+LONG_ARCH = "qwen2.5-1.5b"
+LONG_PROMPT, LONG_STEPS, LONG_BLOCK = 32704, 64, 16
+# the cache reaches LONG_PROMPT + LONG_STEPS = 32768 positions; the engine
+# keeps its last slot as scratch, so one block more
+LONG_MAX_LEN = 32768 + LONG_BLOCK
+# the last prompt position's logits of the full prefill (attention over
+# the prompt's bf16 K/V, in chunks; every product at M 32,704) against
+# those of a prefill of one token fewer and one decode step (every
+# product at M 1), over the Q8 pool (K2) and over a bf16 pool (K1, which
+# holds the prefill's K/V exactly): every element within this share of
+# the logits' largest magnitude.  The two routes round their bf16
+# products differently, which 28 layers of random weights grow to a few
+# percent of the largest logit, so an argmax may differ only where the
+# full prefill's top-2 gap is at most SPEC_GAP, the rule every other path
+# of this script holds differently rounded runs to.
+LONG_LOGIT_RTOL = 0.05
+
+
+def _long_cost(cfg) -> dict:
+    """The chunked attention's working set (bytes) at the prompt's shapes
+    (``layers.chunked_attention_workspace``) and the scores a prefill
+    over all of it at once would hold: (Hq, S, S) f32 per row."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    hd = cfg.resolved_head_dim()
+    q = torch.empty((1, LONG_PROMPT, cfg.n_heads, hd), device="meta")
+    k = torch.empty((1, LONG_PROMPT, cfg.n_kv_heads, hd), device="meta")
+    geo = L._Geometry(q, k, 512, 1024)
+    return {"attention_working_set_bytes":
+            L.chunked_attention_workspace(geo, 2),
+            "unchunked_scores_bytes": cfg.n_heads * LONG_PROMPT ** 2 * 4,
+            "tiles_per_layer": geo.tiles(True, True),
+            "tiles_unskipped": geo.nq * geo.nkv}
+
+
+def long_phase(dev: str = "cuda") -> dict:
+    """qwen2.5-1.5b at its published width, W4A16 under ``DEFAULT_POLICY``,
+    on a Q8 paged pool (16-token blocks): one prompt of ``LONG_PROMPT``
+    random seed-0 tokens prefilled through ``DecodeEngine`` (the chunked
+    attention: one (1, 2, 6, 512, 1024) score tile at a time), then
+    ``LONG_STEPS`` greedy steps, which fill the cache to 32,768 positions
+    (K2 over up to 2,048 blocks a row).  Launches exact: 168 K3 at M =
+    ``LONG_PROMPT`` in the prefill, 28 K2 and 168 K3 at M 1 a step.  Then
+    the self-consistency check: a prefill of the first ``LONG_PROMPT`` -
+    1 tokens and one decode step with the last one give the last prompt
+    position's logits again, over the Q8 pool (K2) and over a bf16 pool
+    (K1): within ``LONG_LOGIT_RTOL``, the argmax equal or the full
+    prefill's top-2 gap at most ``SPEC_GAP``.  The parent commit cannot run this: its prefill holds the (12, S, S) f32
+    scores, 47.8 GiB, and their exp.  Returns the run's {"counts",
+    "shapes", ...} (prefill and steps; the check's launches apart)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as TM
+    from repro_torch.quant.qlinear import cast_params, quantize_model_params
+    from repro_torch.serving.engine import DecodeEngine
+    from repro_torch.serving.sampler import SamplerConfig
+
+    cfg = get_config(LONG_ARCH)
+    torch.cuda.empty_cache()
+    params = cast_params(quantize_model_params(
+        TM.init_params(cfg, seed=0, device=dev)), getattr(torch, cfg.dtype))
+    torch.cuda.empty_cache()
+    eng = DecodeEngine(params, cfg, max_len=LONG_MAX_LEN, paged=True,
+                       block_size=LONG_BLOCK, kv_quant="q8",
+                       n_blocks=1 + 2 * (LONG_MAX_LEN // LONG_BLOCK))
+    toks = torch.randint(3, cfg.vocab_size, (1, LONG_PROMPT),
+                         generator=torch.Generator().manual_seed(0))
+    lens = torch.tensor([LONG_PROMPT], dtype=torch.int32)
+    layout = gemm_layout(cfg)
+    others = ("paged_attention", "lut_dequant_kv", "lut_softmax_attention",
+              "tile_quantize")
+
+    def check(what, counts, shapes, want_shapes, k2):
+        bad = shapes != want_shapes or counts["quant_paged_attention"] != k2 \
+            or any(counts[k] for k in others)
+        if bad:
+            raise AssertionError(f"long/{what}: launches {counts} "
+                                 f"{shapes}, want {want_shapes} and {k2} K2")
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        st = eng.prefill(toks, lens)
+        full = st.pending_logits[0].float().clone()
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_peak = torch.cuda.max_memory_allocated()
+        counts, shapes = ops.launch_counts(), ops.gemm_launches_by_shape()
+        check("prefill", counts, shapes,
+              {(LONG_PROMPT, K, N): n for (K, N), n in layout.items()}, 0)
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st, out = eng.generate(st, LONG_STEPS, None,
+                               SamplerConfig(greedy=True))
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        decode_peak = torch.cuda.max_memory_allocated()
+        dcounts, dshapes = ops.launch_counts(), ops.gemm_launches_by_shape()
+        check("decode", dcounts, dshapes,
+              {(1, K, N): n * LONG_STEPS for (K, N), n in layout.items()},
+              cfg.n_layers * LONG_STEPS)
+        cache_len = int(st.cache_len[0])
+        if cache_len != LONG_PROMPT + LONG_STEPS or not bool(
+                (out >= 0).all()):
+            raise AssertionError(f"long: cache at {cache_len}, tokens "
+                                 f"{out.tolist()}")
+        table_w = int(st.n_blocks[0])
+        eng.release_rows(st, [0])
+        # one token fewer, then the last prompt token through one step,
+        # over the Q8 pool (K2) and over a bf16 pool (K1)
+        q8 = _long_self_check(eng, toks, lens, dev, layout, check, "q8")
+        del eng
+        torch.cuda.empty_cache()
+        fp_eng = DecodeEngine(params, cfg, max_len=LONG_MAX_LEN, paged=True,
+                              block_size=LONG_BLOCK,
+                              n_blocks=1 + LONG_MAX_LEN // LONG_BLOCK)
+        fp = _long_self_check(fp_eng, toks, lens, dev, layout, check, "none")
+        del fp_eng
+    top2 = torch.topk(full, 2).values
+    gap = float(top2[0] - top2[1])
+    scale = float(full.abs().max())
+    for name, (sc, _) in (("q8", q8), ("none", fp)):
+        if not (torch.isfinite(sc).all() and torch.isfinite(full).all()):
+            raise AssertionError(f"long/{name}: non-finite logits")
+    q8_diff = float((q8[0] - full).abs().max())
+    fp_diff = float((fp[0] - full).abs().max())
+    q8_same = int(torch.argmax(q8[0])) == int(torch.argmax(full))
+    fp_same = int(torch.argmax(fp[0])) == int(torch.argmax(full))
+    ok = max(q8_diff, fp_diff) <= LONG_LOGIT_RTOL * scale and (
+        (q8_same and fp_same) or gap <= SPEC_GAP)
+    from repro_torch.kernels import paged_attention as PA
+
+    emit("long", arch=cfg.name, layers=cfg.n_layers, prompt=LONG_PROMPT,
+         steps=LONG_STEPS, cache_len=cache_len, table_blocks=table_w,
+         kv_quant="q8", prefill_ms=prefill_ms,
+         decode_tok_per_s=LONG_STEPS / decode_s,
+         decode_step_ms=decode_s / LONG_STEPS * 1e3,
+         base_device_bytes=base, prefill_peak_device_bytes=prefill_peak,
+         decode_peak_device_bytes=decode_peak,
+         k2_splits=PA.splits(1, cfg.n_kv_heads, LONG_MAX_LEN // LONG_BLOCK),
+         largest_logit=scale, top2_gap=gap,
+         check_q8={"max_abs_diff": q8_diff, "tol": LONG_LOGIT_RTOL * scale,
+                   "argmax_equal": q8_same, "launches": q8[1]},
+         check_bf16={"max_abs_diff": fp_diff, "tol": LONG_LOGIT_RTOL * scale,
+                     "argmax_equal": fp_same, "launches": fp[1]},
+         prefill_launches=counts, decode_launches=dcounts,
+         **_long_cost(cfg))
+    if not ok:
+        raise AssertionError(f"long: the last prompt position's logits: Q8 "
+                             f"{q8_diff} (argmax equal {q8_same}), bf16 "
+                             f"{fp_diff} (argmax equal {fp_same}); largest "
+                             f"{scale}, top-2 gap {gap}")
+    del params, st
+    torch.cuda.empty_cache()
+    total = {k: counts[k] + dcounts[k] for k in counts}
+    merged = dict(shapes)
+    for k, n in dshapes.items():
+        merged[k] = merged.get(k, 0) + n
+    return {"counts": total, "shapes": merged, "kv_shapes": {},
+            "kv_geom": (cfg.n_kv_heads, cfg.resolved_head_dim())}
+
+
+def _long_self_check(eng, toks, lens, dev, layout, check, kv: str):
+    """A prefill of the prompt but its last token, then one decode step
+    with that token: (the step's f32 logits, its launches).  Exactly 168
+    K3 at M ``LONG_PROMPT`` - 1 and 168 at M 1, and 28 launches of the
+    pool's paged attention (K2 on Q8, K1 on bf16)."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    st = eng.prefill(toks[:, :-1], lens - 1)
+    st = eng.prepare_decode(st)
+    tok = toks[:, -1].to(dev).int()
+    logits = eng._decode(tok, eng._cache(st), st.cache_len + 1,
+                         st.done)[0].float()
+    counts, shapes = ops.launch_counts(), ops.gemm_launches_by_shape()
+    want = {(LONG_PROMPT - 1, K, N): n for (K, N), n in layout.items()}
+    want.update({(1, K, N): n for (K, N), n in layout.items()})
+    n_layers = eng.cfg.n_layers
+    if kv == "none":
+        if counts["paged_attention"] != n_layers:
+            raise AssertionError(f"long/check/bf16: launches {counts}")
+        counts = dict(counts, paged_attention=0)
+        check("check/bf16", counts, shapes, want, 0)
+    else:
+        check("check/q8", counts, shapes, want, n_layers)
+    eng.release_rows(st, [0])
+    return logits, ops.launch_counts()
+
+
+def long_paged_case(seed: int):
+    """K2 at the ``long`` path's decode geometry: one row, Hkv 2, G 6, D
+    128, a Q8 pool of 16-token blocks, the table's 2,049 blocks, the
+    cache at 32,768 positions."""
+    import torch
+
+    from repro_torch.serving.kv_quant import kv_tile_geometry, quantize_kv
+
+    Hkv, G, D, bs = 2, 6, 128, LONG_BLOCK
+    W = LONG_MAX_LEN // bs
+    n = LONG_PROMPT + LONG_STEPS
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = (torch.randn((1, Hkv, G, D), generator=gen, device="cuda")
+         * 0.5).to(torch.bfloat16)
+    gr, gc = kv_tile_geometry(Hkv, D)
+    pools = [quantize_kv(torch.randn((1 + W, bs, Hkv, D), generator=gen,
+                                     device="cuda") * 0.5, mode="q8",
+                         gr=gr, gc=gc) for _ in range(2)]
+    table = (torch.randperm(W, generator=torch.Generator().manual_seed(
+        seed)) + 1).int()[None].cuda()
+    return q, pools[0], pools[1], table, torch.tensor([n], dtype=torch.int32,
+                                                      device="cuda")
+
+
+def check_long_paged(results: list) -> None:
+    """K2 (exact softmax) at the ``long`` path's geometry against its plain
+    version (2e-5 f32 and bf16 with one bf16 step), timed in bf16 beside
+    its bound, the plain version and SDPA over the gathered cache."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as PA
+
+    plain = plain_fn("exact")
+    cb = ops.q4_codebook("cuda")
+    q, kp, vp, table, lens = long_paged_case(11)
+    errs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        qq = q.to(dtype)
+        out = PA.quant_paged_attention(qq, kp, vp, table, lens, None, cb,
+                                       window=0, exp_mode="exact")
+        want = plain(qq, kp, vp, table, lens, None, 0)
+        torch.cuda.synchronize()
+        rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
+        errs.append(check_close(f"quant_paged_attention/long/{dtype}", out,
+                                want, 2e-5, rtol))
+    run = lambda: PA.quant_paged_attention(q, kp, vp, table, lens, None,  # noqa: E731
+                                           cb, exp_mode="exact")
+    nbytes, flops = paged_bytes_flops(q, kp, table, lens, 0)
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    row = {"name": "quant_paged_attention/q8/exact/long", "route": "cuda",
+           "source": PAGED_SRC, "replaces": REPLACES["quant_paged_attention"],
+           "max_abs_err": max(errs), "ms": time_ms(run), "call_ms":
+           call_ms(run), "plain_ms": time_ms(
+               lambda: plain(q, kp, vp, table, lens, None, 0), iters=10),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": sdpa_library(q, kp, vp, table, lens),
+           "splits": PA.splits(*q.shape[:2], table.shape[1]),
+           "counter": "quant_paged_attention", "path": "long"}
+    emit("kernel", **row, shape=f"B1 Hkv2 G6 D128 bs16 W{table.shape[1]} "
+         f"len{int(lens[0])}", dtype="bfloat16")
+    results.append(row)
+
+
 TRAIN_ARGS = ["--arch", "qwen2.5-1.5b", "--steps", "6", "--batch", "8",
               "--seq", "128"]
 # the resume chain: 4 layers of the same widths, a checkpoint every 2
@@ -2045,11 +2326,74 @@ TRAIN_ARGS = ["--arch", "qwen2.5-1.5b", "--steps", "6", "--batch", "8",
 CHAIN_LAYERS = 4
 CHAIN_ARGS = ["--arch", "qwen2.5-1.5b", "--batch", "8", "--seq", "128",
               "--ckpt-every", "2"]
+# train_4k's sequence length at qwen2.5-1.5b's published width: 2 rows x
+# 4096 tokens, 3 steps; the predictions written before the first card run
+TRAIN_4K_ARGS = ["--arch", "qwen2.5-1.5b", "--steps", "3", "--batch", "2",
+                 "--seq", "4096", "--log-every", "1"]
+TRAIN_4K_PREDICTED = {"step_ms": 1500.0, "peak_device_bytes": 40e9}
 
 
 def _dir_bytes(path) -> int:
     return sum(f.stat().st_size for f in Path(path).rglob("*")
                if f.is_file())
+
+
+def _unchanged_leaves(res, dev) -> list:
+    """Param leaves of a ``launch.train`` run equal to their init (the
+    key biases' grad is zero in exact arithmetic); any other raises."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.models import api
+
+    cfg = res["cfg"]
+    vals = res["losses"] + res["grad_norms"]
+    if not all(map(math.isfinite, vals)):
+        raise AssertionError(f"train: losses {res['losses']} grad norms "
+                             f"{res['grad_norms']}")
+    init = api.get_model(cfg).init_params(cfg, seed=0, device=dev)
+    unchanged = [p for (p, a, _), (_, b, _) in zip(
+        T.stacked_leaves(res["state"]["params"]), T.stacked_leaves(init))
+        if all(torch.equal(x, y) for x, y in zip(a, b))]
+    del init
+    if any(not p.endswith("wk/b") for p in unchanged):
+        raise AssertionError(f"train: params unchanged: {unchanged}")
+    return unchanged
+
+
+def train_4k_run(dev: str = "cuda") -> None:
+    """``launch.train`` at train_4k's sequence length (``TRAIN_4K_ARGS``):
+    finite losses and grad norms, every leaf but the key biases changed;
+    step ms and peak bytes beside ``TRAIN_4K_PREDICTED``.  Its attention
+    runs the chunked loop, forward and (recomputing each tile) backward,
+    under remat."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import train
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    on = [] if dev == "cuda" else ["--device", dev]
+    res = train.main(TRAIN_4K_ARGS + on)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if len(res["losses"]) != 3:
+        raise AssertionError(f"train_4k: {len(res['losses'])} steps")
+    unchanged = _unchanged_leaves(res, dev)
+    batch, seq = (int(TRAIN_4K_ARGS[TRAIN_4K_ARGS.index(f) + 1])
+                  for f in ("--batch", "--seq"))
+    after = np.array(res["step_s"][1:]) * 1e3
+    emit("train_4k", args=TRAIN_4K_ARGS, losses=res["losses"],
+         grad_norms=res["grad_norms"],
+         step_ms=[x * 1e3 for x in res["step_s"]],
+         step_ms_p50_after_first=float(np.percentile(after, 50)),
+         tokens_per_s=batch * seq * 1e3 / float(np.percentile(after, 50)),
+         peak_device_bytes=peak, predicted=TRAIN_4K_PREDICTED,
+         unchanged_leaves=unchanged)
+    del res
+    torch.cuda.empty_cache()
 
 
 def train_phase(dev: str = "cuda") -> dict:
@@ -2088,18 +2432,10 @@ def train_phase(dev: str = "cuda") -> dict:
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         cfg = res["cfg"]
-        vals = res["losses"] + res["grad_norms"]
-        if len(res["losses"]) != 6 or not all(map(math.isfinite, vals)):
-            raise AssertionError(f"train: losses {res['losses']} grad "
-                                 f"norms {res['grad_norms']}")
+        if len(res["losses"]) != 6:
+            raise AssertionError(f"train: losses {res['losses']}")
+        unchanged = _unchanged_leaves(res, dev)
         params = res["state"]["params"]
-        init = api.get_model(cfg).init_params(cfg, seed=0, device=dev)
-        unchanged = [p for (p, a, _), (_, b, _) in zip(
-            T.stacked_leaves(params), T.stacked_leaves(init))
-            if all(torch.equal(x, y) for x, y in zip(a, b))]
-        del init
-        if any(not p.endswith("wk/b") for p in unchanged):
-            raise AssertionError(f"train: params unchanged: {unchanged}")
         step_s = np.array(res["step_s"][1:])
         batch, seq = (int(TRAIN_ARGS[TRAIN_ARGS.index(f) + 1])
                       for f in ("--batch", "--seq"))
@@ -2174,6 +2510,7 @@ def train_phase(dev: str = "cuda") -> dict:
              wall_s=chain_s)
         del first, second
         torch.cuda.empty_cache()
+        train_4k_run(dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {"counts": counts, "shapes": shapes, "kv_shapes": {},
@@ -2184,8 +2521,8 @@ def train_phase(dev: str = "cuda") -> dict:
 # the distributed layer: ranks that share the one card, over gloo
 # ---------------------------------------------------------------------------
 
-# sequence-parallel decode: qwen2.5-1.5b W4A16 at its published width and
-# depth, 2 ranks, the dense bf16 cache's 256 slots split over "data"
+# tensor-parallel decode: qwen2.5-1.5b W4A16 at its published width and
+# depth, 2 ranks on "model", the dense bf16 cache's 256 slots split over it
 DIST_ARCH = "qwen2.5-1.5b"
 DIST_ROWS, DIST_PROMPT, DIST_MAX_LEN, DIST_STEPS = 8, 64, 256, 32
 # sharded training: launch/train.py under torch.distributed.run, 3 steps of
@@ -2249,20 +2586,37 @@ def _worker_device():
 
 
 def _dist_seqpar(dev) -> dict:
-    """Sequence-parallel greedy decode on a (2, 1) mesh, kv_seq_axis
-    "data", teacher-forced with a one-rank decode's tokens (each rank
-    runs that reference on the whole cache first).  A step's greedy token
-    may differ from the reference's only where the reference's top-2
-    logit gap is under ``SPEC_GAP``; K3 launches exactly 168 a step."""
+    """Tensor-parallel greedy decode on a (1, 2) mesh: each rank holds its
+    ``model`` blocks of the W4A16 weights (q, k, v, gate and up columns,
+    o and down rows, the vocab) and its half of the dense bf16 cache's
+    sequence (``kv_seq_axis`` "model"); it projects its heads, gathers
+    the (B, 1, H, D) activations over ``model``, attends over its cache
+    block and merges, sums its row-parallel outputs and samples from its
+    vocab block (``models.tensor_parallel``).  Teacher-forced with a
+    one-rank decode's tokens (each rank runs that reference on the whole
+    cache first): the rank's vocab block of the logits against the
+    reference's, and a step's greedy token may differ from the
+    reference's only where the reference's top-2 logit gap is under
+    ``SPEC_GAP``; K3 launches exactly 168 a step, at the sharded shapes.
+    The collectives the rank issues are recorded beside those of the same
+    program run as rank 0's on ``meta`` under an ``AbstractMesh`` (the
+    dry-run's count)."""
+    import dataclasses
+
     import torch
 
+    from repro_torch import tree as T
     from repro_torch.configs.registry import get_config
-    from repro_torch.distributed.sharding import ParallelContext
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import (AbstractMesh,
+                                                  ParallelContext, shard_of)
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import tensor_parallel as TP
     from repro_torch.models import transformer as TM
     from repro_torch.quant.qlinear import cast_params, quantize_model_params
-    from repro_torch.serving import seq_parallel as SP
+    from repro_torch.serving.sampler import SamplerConfig
+    from repro_torch.train.loop import local_view, shard_params
 
     cfg = get_config(DIST_ARCH)
     params = cast_params(quantize_model_params(
@@ -2273,12 +2627,14 @@ def _dist_seqpar(dev) -> dict:
                             generator=gen).to(dev)
     lens = torch.full((DIST_ROWS,), DIST_PROMPT, dtype=torch.int32,
                       device=dev)
-    par = ParallelContext(mesh=make_host_mesh(2, 1, device_type="cpu"),
-                          kv_seq_axis="data", fsdp=False)
+    par = ParallelContext(mesh=make_host_mesh(1, 2, device_type="cpu"),
+                          kv_seq_axis="model", fsdp=False)
+    tp = TP.TPLayout(par)
     with torch.no_grad():
         cache = TM.init_cache(cfg, DIST_ROWS, DIST_MAX_LEN, device=dev)
         first = TM.prefill(params, prompts, cfg, lengths=lens, cache=cache)
-        local = SP.shard_cache(cache, par, DIST_ROWS)
+        local = {k: shard_of(v, (None, None, "model"), par).clone()
+                 for k, v in cache.items()}
         tok, ref_tok, ref_lg = torch.argmax(first, -1), [], []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2291,34 +2647,61 @@ def _dist_seqpar(dev) -> dict:
         torch.cuda.synchronize()
         ref_s = time.perf_counter() - t0
         del cache
+        blocks, specs = shard_params(params, par)
+        del params
+        torch.cuda.empty_cache()
+        view = local_view(blocks, specs, par)
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sp_lg = [TM.decode_step(params, ref_tok[i][:, None].int(), local,
-                                lens + i + 1, cfg, par)
-                 for i in range(DIST_STEPS)]
+        with C.record_collectives() as rec:
+            tp_lg = [TP.decode_step(view, ref_tok[i][:, None].int(), local,
+                                    lens + i + 1, cfg, tp)
+                     for i in range(DIST_STEPS)]
         torch.cuda.synchronize()
-        sp_s = time.perf_counter() - t0
+        tp_s = time.perf_counter() - t0
         counts = ops.launch_counts()
         shapes = ops.gemm_launches_by_shape()
+        greedy = SamplerConfig(greedy=True)
+        tp_tok = [TP.sample(lg.float(), 0, greedy, cfg, tp) for lg in tp_lg]
+        # the same program as rank 0's on meta: the dry-run's count
+        apar = dataclasses.replace(
+            par, mesh=AbstractMesh((1, 2), ("data", "model")))
+        meta = T.map_with_path(lambda _, t: t.to("meta"), blocks)
+        mcache = {k: v.to("meta") for k, v in local.items()}
+        with C.record_collectives() as mrec:
+            for i in range(DIST_STEPS):
+                TP.decode_step(local_view(meta, specs, apar),
+                               ref_tok[i][:, None].int().to("meta"), mcache,
+                               (lens + i + 1).to("meta"), cfg,
+                               TP.TPLayout(apar))
+    n = tp_lg[0].shape[-1]
+    r = tp.r
     max_diff, flips, worst_gap = 0.0, 0, 0.0
-    for a, b in zip(sp_lg, ref_lg):
-        max_diff = max(max_diff, float((a - b).abs().max()))
+    for a, b, t in zip(tp_lg, ref_lg, tp_tok):
+        max_diff = max(max_diff, float((a - b[:, r * n:(r + 1) * n]).abs()
+                                       .max()))
         top2 = torch.topk(b, 2, dim=-1).values
         gap = top2[:, 0] - top2[:, 1]
-        differ = torch.argmax(a, -1) != torch.argmax(b, -1)
+        differ = t.long() != torch.argmax(b, -1)
         if bool(differ.any()):
             flips += int(differ.sum())
             worst_gap = max(worst_gap, float(gap[differ].max()))
-    want = sum(gemm_layout(cfg).values()) * DIST_STEPS
+    layout = gemm_layout(cfg)
+    want = sum(layout.values()) * DIST_STEPS
+    # each launch multiplies by the rank's half of its weight
+    half = sum(n * K * N for (K, N), n in layout.items()) * DIST_STEPS / 2
     if counts["lut_dequant_gemm"] != want or any(
-            n for k, n in counts.items() if k != "lut_dequant_gemm"):
-        raise AssertionError(f"dist/seqpar: launches {counts}, want {want} "
-                             f"K3 and nothing else")
+            n for k, n in counts.items() if k != "lut_dequant_gemm") or \
+            any(M != DIST_ROWS for M, _, _ in shapes) or \
+            sum(n * K * N for (_, K, N), n in shapes.items()) != half:
+        raise AssertionError(f"dist/seqpar: launches {counts} {shapes}, "
+                             f"want {want} K3 at the sharded shapes and "
+                             f"nothing else")
     if worst_gap > SPEC_GAP:
         raise AssertionError(f"dist/seqpar: a token differs where the "
                              f"reference's top-2 gap is {worst_gap}")
-    return {"layers": cfg.n_layers, "rows": DIST_ROWS,
+    return {"layers": cfg.n_layers, "rows": DIST_ROWS, "mesh": "1x2",
             "prompt": DIST_PROMPT, "max_len": DIST_MAX_LEN,
             "local_slots": DIST_MAX_LEN // 2, "steps": DIST_STEPS,
             "max_logit_diff": max_diff, "token_flips": flips,
@@ -2326,7 +2709,8 @@ def _dist_seqpar(dev) -> dict:
                 "lut_dequant_gemm"], "k3_per_step": counts[
                 "lut_dequant_gemm"] / DIST_STEPS, "counts": counts,
             "shapes": [[list(k), n] for k, n in shapes.items()],
-            "step_ms": sp_s / DIST_STEPS * 1e3,
+            "collectives": rec, "collectives_meta": mrec,
+            "step_ms": tp_s / DIST_STEPS * 1e3,
             "ref_step_ms": ref_s / DIST_STEPS * 1e3}
 
 
@@ -2602,7 +2986,9 @@ def dist_phase(dev: str = "cuda", train_layers: int = 0) -> dict:
        the one rank's, each rank's peak bytes beside the one rank's;
        ``train_layers`` cuts the depth of both (0: the config's);
     2. a worker group of 2 ranks (this script with ``--dist-worker``):
-       sequence-parallel decode, ``distributed_sample``, the MoE's
+       tensor-parallel decode over a sequence-split cache (each rank's
+       collectives against the dry-run's count), ``distributed_sample``,
+       the MoE's
        sharded branch, ``compressed_psum`` and the elastic restore of the
        2 x 2 checkpoint, held against the digests its ranks printed of
        their trained state (``_dist_*``).
@@ -2663,6 +3049,11 @@ def dist_phase(dev: str = "cuda", train_layers: int = 0) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     sp = [r["seqpar"] for r in ranks]
+    for r, x in enumerate(sp):
+        if x["collectives"] != x["collectives_meta"]:
+            raise AssertionError(f"dist/seqpar: rank {r} issued "
+                                 f"{x['collectives']}, the dry-run counts "
+                                 f"{x['collectives_meta']}")
     emit("dist", backend="gloo", ranks_share="cuda:0",
          train={"mesh": DIST_MESH, "layers": n_layers,
                 "args": DIST_TRAIN_ARGS, "losses": losses,
@@ -2674,8 +3065,11 @@ def dist_phase(dev: str = "cuda", train_layers: int = 0) -> dict:
                 else None,
                 "one_rank_wall_s": one_s},
          seqpar={k: v for k, v in sp[0].items()
-                 if k not in ("counts", "shapes")},
+                 if k not in ("counts", "shapes", "collectives",
+                              "collectives_meta")},
          seqpar_k3_per_rank=[s["k3_launches"] for s in sp],
+         seqpar_collectives_per_rank=[s["collectives"] for s in sp],
+         seqpar_collectives_meta=sp[0]["collectives_meta"],
          seqpar_step_ms_per_rank=[s["step_ms"] for s in sp],
          sample=ranks[0]["sample"], moe=ranks[0]["moe"],
          compression=ranks[0]["compression"],
@@ -3328,6 +3722,7 @@ def main() -> int:
     reference_train_check()
     runs, spec = serve_runs()
     spec_parity(spec, spec.pop("eos_id"))
+    runs["long"] = long_phase()
     runs["encdec/whisper"] = whisper_run()
     runs["train/serve-ckpt"] = train_phase()
     runs["dist/seqpar"] = dist_phase(train_layers=DIST_TRAIN_LAYERS)
@@ -3345,12 +3740,14 @@ def main() -> int:
     gemm_mkn, kv_r = {}, {}
     for path in ("q8/exact", "q8/prefix", "q4/prefix", "sc/direct",
                  "beam/sched", "beam/direct") + SPEC_PATHS + MOE_PATHS + \
-            ("q4/stablelm",) + DENSE_PATHS + ("encdec/whisper",):
+            ("q4/stablelm",) + DENSE_PATHS + ("encdec/whisper", "long",
+                                              "dist/seqpar"):
         for mkn in runs[path]["shapes"]:
             gemm_mkn.setdefault(mkn, path)
         for mode, r in runs[path]["kv_shapes"]:
             kv_r.setdefault((mode, r, *runs[path]["kv_geom"]), path)
     check_gemm_kernel(results, gemm_mkn)
+    check_long_paged(results)
     check_dequant_kv_kernel(results, kv_r)
     phases = {"flash": flash_phase(results),
               "quantize": quantize_phase(results)}

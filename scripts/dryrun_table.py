@@ -18,7 +18,7 @@ import sys
 from pathlib import Path
 
 GIB = 2 ** 30
-KINDS = ("all-gather", "reduce-scatter", "all-reduce")
+KINDS = ("all-gather", "reduce-scatter", "all-reduce", "collective-permute")
 
 
 def main(argv) -> int:

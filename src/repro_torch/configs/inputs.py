@@ -13,12 +13,16 @@ The cells, their parallel settings and their specs are the JAX
 package's (``repro.configs.inputs``).  What runs under them is the port's
 own layout: a cell's arguments (``Cell.args``) are ``meta`` tensors of
 rank 0's blocks of the global inputs (``sharding.local_shape``), and its
-function is rank 0's program over them.  Parameters are read through the
-gathered view of the sharded train step (``train.loop.gathered_view``),
-which all-gathers a leaf where the model reads it; the rows of a serve
-step are gathered whole where the port's model takes global rows, and a
-prefill computes this rank's rows.  So a cell's argument bytes are a JAX
-device's, and its temp and collective bytes are the port's.
+function is rank 0's program over them.  The transformer family runs on
+its per-device layout (``models.tensor_parallel``): weights read as
+their ``model`` blocks (``train.loop.local_view``), rows kept on their
+``data`` shard, activations moved instead; a prefill keeps the kv heads
+each rank read (``tensor_parallel.kv_heads_read``), a decode step samples
+from the rank's vocab block.  The other families read every leaf through
+the gathered view (``train.loop.gathered_view``), and their decode steps
+take the rows and every cache leaf outside the sequence-parallel ones
+whole.  So a cell's argument bytes are a JAX device's, and its temp and
+collective bytes are the port's.
 """
 from __future__ import annotations
 
@@ -216,7 +220,8 @@ def build_cell(arch: str, shape: InputShape, par: ParallelContext,
     """``quantized``: serve cells run with tile-Q4_0 weight leaves (Q8_0
     down-proj), the paper's §5.1 deployment, so the dry-run counts the
     kernels' int4/int8 byte traffic."""
-    from repro_torch.train.loop import gathered_view
+    from repro_torch.models import tensor_parallel as TP
+    from repro_torch.train.loop import gathered_view, local_view
 
     cfg = get_config(arch, smoke=smoke)
     cache_len_cap = shape.seq_len
@@ -237,8 +242,8 @@ def build_cell(arch: str, shape: InputShape, par: ParallelContext,
         # serving: weights replicated over data; TP over model only.
         par = dataclasses.replace(par, fsdp=False)
     else:
-        # training: the JAX package's Megatron SP storage rule (carried,
-        # not honoured by the port's step: it computes on gathered weights)
+        # training: sequence-shard the remat-saved residual stream over the
+        # model axis (Megatron SP; the transformer family's layout)
         par = dataclasses.replace(par, shard_activations_seq=True)
     model = api.get_model(cfg)
     aparams = abstract_tree(cfg, serve=shape.kind != "train",
@@ -283,6 +288,28 @@ def build_cell(arch: str, shape: InputShape, par: ParallelContext,
                     (aparams, aopt, *(globals_[k] for k in keys)))
 
     row_axes = specs["tokens"].spec[0]
+    tp = TP.TPLayout(par, rows=row_axes) if TP.applies(cfg, par) else None
+
+    if shape.kind == "prefill" and tp is not None:
+        lo, hi = TP.kv_heads_read(cfg, tp.m, tp.r)
+
+        def tp_prefill_fn(params, tokens, lengths, embeddings=None):
+            shape = (cfg.n_layers, tokens.shape[0], S, hi - lo,
+                     cfg.resolved_head_dim())
+            dtype = getattr(torch, cfg.dtype)
+            cache = {n: torch.zeros(shape, dtype=dtype, device=tokens.device)
+                     for n in ("k", "v")}
+            logits = TP.prefill(local_view(params, pspecs, par), tokens, cfg,
+                                tp, lengths=lengths, cache=cache,
+                                embeddings=embeddings)
+            return logits, cache
+
+        keys = ["tokens", "lengths"] + (["embeddings"] if "embeddings" in
+                                        specs else [])
+        return Cell(name, "prefill", tp_prefill_fn,
+                    (params, *(blocks[k] for k in keys)),
+                    (pspecs, *(specs[k].spec for k in keys)),
+                    (aparams, *(globals_[k] for k in keys)))
 
     if shape.kind == "prefill":
         t_enc = {"t_enc": cfg.encoder_seq_len} if cfg.family == "encdec" \
@@ -319,6 +346,18 @@ def build_cell(arch: str, shape: InputShape, par: ParallelContext,
     blockwise = ("k", "v", "attn_k", "attn_v") if seq_par else ()
     tok_spec, vec_spec = specs["tokens"].spec, specs["cache_len"].spec
     sc = SamplerConfig(temperature=0.8)
+
+    if tp is not None:
+        def tp_serve_fn(params, cache, tokens, cache_len, seed):
+            view = local_view(params, pspecs, par)
+            logits = TP.decode_step(view, tokens, cache, cache_len, cfg, tp)
+            return TP.sample(logits.float(), seed, sc, cfg, tp), cache
+
+        return Cell(name, "decode", tp_serve_fn,
+                    (params, cache, blocks["tokens"], blocks["cache_len"], 0),
+                    (pspecs, cspecs, tok_spec, vec_spec, None),
+                    (aparams, acache, globals_["tokens"],
+                     globals_["cache_len"], 0))
 
     def serve_fn(params, cache, tokens, cache_len, seed):
         tokens = gather_leaf(tokens, tok_spec, par)

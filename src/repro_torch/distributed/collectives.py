@@ -26,9 +26,10 @@ shape and dtype as rank 0 would get it, and adds (1, the result's bytes)
 to the recorder that :func:`record_collectives` installs, under the
 names XLA's HLO gives the primitive (``psum`` / ``pmax`` / ``pmin`` ->
 ``all-reduce``, ``all_gather`` -> ``all-gather``, ``psum_scatter`` ->
-``reduce-scatter``).  The backward of a differentiable primitive is its
-transpose and is recorded as such.  An installed recorder also counts
-the collectives a real mesh performs, by the same names.
+``reduce-scatter``, :func:`regroup` -> ``collective-permute``).  The
+backward of a differentiable primitive is its transpose and is recorded
+as such.  An installed recorder also counts the collectives a real mesh
+performs, by the same names.
 """
 from __future__ import annotations
 
@@ -55,24 +56,36 @@ def axis_size(axis, mesh) -> int:
     return math.prod(shape[a] for a in axes_of(axis))
 
 
+_CALLS = None  # a list of (kind, axes, operand shape) while recording
+
+
 @contextlib.contextmanager
-def record_collectives():
+def record_collectives(calls: list = None):
     """Count the collectives issued in the block: yields {kind: {"count",
     "bytes"}}, the bytes being each result's (per rank), as the dry-run
-    of the JAX package parses them from the compiled HLO."""
-    global _RECORDER
+    of the JAX package parses them from the compiled HLO.  ``calls``, if
+    given, receives (kind, axes, the operand's shape, the bytes counted)
+    per call (a block that gives none keeps an enclosing block's list)."""
+    global _RECORDER, _CALLS
     prev, _RECORDER = _RECORDER, {}
+    prev_calls, _CALLS = _CALLS, (_CALLS if calls is None else calls)
     try:
         yield _RECORDER
     finally:
-        _RECORDER = prev
+        _RECORDER, _CALLS = prev, prev_calls
 
 
-def _record(kind: str, result: torch.Tensor) -> None:
+def _record(kind: str, result: torch.Tensor, nbytes: int = None,
+            axis=None, operand=None) -> None:
+    if nbytes is None:
+        nbytes = result.numel() * result.element_size()
     if _RECORDER is not None:
         d = _RECORDER.setdefault(kind, {"count": 0, "bytes": 0})
         d["count"] += 1
-        d["bytes"] += result.numel() * result.element_size()
+        d["bytes"] += nbytes
+    if _CALLS is not None:
+        _CALLS.append((kind, axes_of(axis), tuple(
+            (result if operand is None else operand).shape), nbytes))
 
 
 def _abstract(x: torch.Tensor, mesh) -> bool:
@@ -139,7 +152,7 @@ def _all_reduce(x, op, axis, mesh):
         y = x.detach().to("cpu", copy=True) if staged else x.detach().clone()
         dist.all_reduce(y, op=op, group=g)
         y = y.to(x.device) if staged else y
-    _record("all-reduce", y)
+    _record("all-reduce", y, axis=axis)
     return y
 
 
@@ -173,7 +186,7 @@ def _gather_dim(x, axis, mesh, dim):
     else:
         out = _gather0(x.movedim(dim, 0), n,
                        group(axis, mesh)).movedim(0, dim)
-    _record("all-gather", out)
+    _record("all-gather", out, axis=axis, operand=x)
     return out
 
 
@@ -189,7 +202,7 @@ def _scatter_dim(x, axis, mesh, dim):
     else:
         out = _scatter0(x.movedim(dim, 0), n,
                         group(axis, mesh)).movedim(0, dim)
-    _record("reduce-scatter", out)
+    _record("reduce-scatter", out, axis=axis, operand=x)
     return out
 
 
@@ -270,3 +283,145 @@ def all_gather(x: torch.Tensor, axis, mesh, *, dim: int = 0,
     if axis_size(axis, mesh) == 1:
         return x
     return _Gather.apply(x, axis, mesh, dim)
+
+
+# ---------------------------------------------------------------------------
+# Regrouping a split dim: point-to-point pieces between the ranks of an axis
+# ---------------------------------------------------------------------------
+
+
+def _send_recv(sends, recvs, axis, mesh):
+    """Point-to-point exchange along ``axis``: ``sends`` [(peer index,
+    tensor)], ``recvs`` [(peer index, shape, dtype, device)]; returns the
+    received tensors in ``recvs``' order.  All posted, then awaited."""
+    g = group(axis, mesh)
+    ranks = dist.get_process_group_ranks(g)
+    staged = any(t.is_cuda for _, t in sends) or any(
+        torch.device(d).type == "cuda" for *_, d in recvs)
+    staged = staged and dist.get_backend(g) == "gloo"
+    host = "cpu" if staged else None
+    works, outs = [], []
+    for peer, shape, dtype, device in recvs:
+        buf = torch.empty(shape, dtype=dtype, device=host or device)
+        works.append(dist.irecv(buf, src=ranks[peer], group=g))
+        outs.append(buf)
+    for peer, t in sends:
+        t = t.detach().contiguous()
+        works.append(dist.isend(t.cpu() if staged else t, dst=ranks[peer],
+                                group=g))
+    for w in works:
+        w.wait()
+    return [o.to(d) if staged else o
+            for o, (*_, d) in zip(outs, recvs)]
+
+
+def _pieces(have, want, me: int, n: int):
+    """The overlaps [lo, hi) of ``want[me]`` with each rank's ``have``
+    (what ``me`` receives, by source) and of each rank's ``want`` with
+    ``have[me]`` (what it sends, by destination)."""
+    def cut(a, b):
+        lo, hi = max(a[0], b[0]), min(a[1], b[1])
+        return (lo, hi) if hi > lo else None
+
+    got = [(t, c) for t in range(n) if (c := cut(want[me], have[t]))]
+    give = [(s, c) for s in range(n) if s != me
+            and (c := cut(want[s], have[me]))]
+    return got, give
+
+
+def _regroup(x, have, want, axis, mesh, dim):
+    n = axis_size(axis, mesh)
+    me = axis_index(axis, mesh)
+    got, give = _pieces(have, want, me, n)
+    h0 = have[me][0]
+
+    def part(lo, hi):
+        return x.narrow(dim, lo - h0, hi - lo)
+
+    shape = list(x.shape)
+    recvs = []
+    for t, (lo, hi) in got:
+        if t != me:
+            shape[dim] = hi - lo
+            recvs.append((t, tuple(shape), x.dtype, x.device))
+    if _abstract(x, mesh):
+        received = [torch.empty(s, dtype=d, device="meta")
+                    for _, s, d, _ in recvs]
+    elif recvs or give:
+        received = _send_recv([(s, part(lo, hi)) for s, (lo, hi) in give],
+                              recvs, axis, mesh)
+    else:
+        received = []
+    it = iter(received)
+    out = torch.cat([part(lo, hi) if t == me else next(it)
+                     for t, (lo, hi) in got], dim=dim) if got else \
+        x.new_empty(shape[:dim] + [0] + shape[dim + 1:])
+    nbytes = sum(r.numel() * r.element_size() for r in received)
+    if received or give:
+        _record("collective-permute", out, nbytes, axis=axis, operand=x)
+    return out
+
+
+def _unregroup(g, x_shape, have, want, axis, mesh, dim):
+    """The transpose of :func:`_regroup`: each received piece's grad goes
+    back to its source and is summed there with the others'."""
+    n = axis_size(axis, mesh)
+    me = axis_index(axis, mesh)
+    got, give = _pieces(have, want, me, n)
+    w0, h0 = want[me][0], have[me][0]
+    gx = g.new_zeros(x_shape)
+    sends, own = [], None
+    for t, (lo, hi) in got:
+        piece = g.narrow(dim, lo - w0, hi - lo)
+        if t == me:
+            own = (lo, piece)
+        else:
+            sends.append((t, piece))
+    shape = list(x_shape)
+    recvs = []
+    for s, (lo, hi) in give:
+        shape[dim] = hi - lo
+        recvs.append((s, tuple(shape), g.dtype, g.device))
+    if _abstract(g, mesh):
+        received = [torch.empty(sh, dtype=d, device="meta")
+                    for _, sh, d, _ in recvs]
+    elif recvs or sends:
+        received = _send_recv(sends, recvs, axis, mesh)
+    else:
+        received = []
+    if own is not None:
+        lo, piece = own
+        gx.narrow(dim, lo - h0, piece.shape[dim]).add_(piece)
+    for (s, (lo, hi)), r in zip(give, received):
+        gx.narrow(dim, lo - h0, hi - lo).add_(r)
+    nbytes = sum(r.numel() * r.element_size() for r in received)
+    if received or sends:
+        _record("collective-permute", gx, nbytes, axis=axis, operand=g)
+    return gx
+
+
+class _Regroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, have, want, axis, mesh, dim):
+        ctx.args = (tuple(x.shape), have, want, axis, mesh, dim)
+        return _regroup(x, have, want, axis, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_unregroup(g, *ctx.args), None, None, None, None, None)
+
+
+def regroup(x: torch.Tensor, have, want, axis, mesh, *,
+            dim: int = -1) -> torch.Tensor:
+    """Move pieces of a dim split over ``axis`` between its ranks: rank
+    i holds global indices ``have[i]`` = [a, b) of dim ``dim`` (``x``) and
+    gets ``want[i]`` = [a', b'), each piece from the ranks that hold it,
+    point to point (XLA's ``collective-permute``; recorded with the bytes
+    the rank receives).  Ranges may be empty or overlap between ranks.
+    Differentiable: the backward returns each piece's grad to its source,
+    summed over the ranks that took it."""
+    dim = dim % x.dim()
+    if axis_size(axis, mesh) == 1:
+        return x.narrow(dim, want[0][0] - have[0][0],
+                        want[0][1] - want[0][0])
+    return _Regroup.apply(x, tuple(have), tuple(want), axis, mesh, dim)

@@ -97,9 +97,9 @@ class ParallelContext:
     # merge per-shard partial softmaxes with one tiny psum.
     kv_seq_axis: Optional[str] = None
     quantized: bool = False        # weights stored as int4 tile-quant
-    # Megatron-style sequence parallelism for the residual stream (a
-    # storage rule of the JAX package; the port's train step does not
-    # honour it: it computes on gathered weights and whole rows).
+    # Megatron-style sequence parallelism for the residual stream: the
+    # transformer family's layer-boundary residual is each rank's block of
+    # the sequence over "model" (``models.tensor_parallel``).
     shard_activations_seq: bool = False
     # tp=False turns the "model" axis into a second FSDP axis: params and
     # the batch shard over every axis.
@@ -353,16 +353,29 @@ def shard_of(x: torch.Tensor, spec, par: ParallelContext, *,
     return x
 
 
-def gather_leaf(x: torch.Tensor, spec, par: ParallelContext) -> torch.Tensor:
+def gather_leaf(x: torch.Tensor, spec, par: ParallelContext, *,
+                keep=()) -> torch.Tensor:
     """The global tensor of which ``x`` is this rank's block under
     ``spec``: one all-gather per sharded dim.  Differentiable: the
     backward reduce-scatters, so each rank's block grad is the sum over
-    the ranks that gathered it of their grads for that block."""
+    the ranks that gathered it of their grads for that block.
+
+    ``keep``: mesh axes not to gather over; a dim split over any of them
+    is left as the rank's block of it (the tensor-parallel layout keeps
+    its weights on ``model``).  Never gathers over a kept axis."""
     if par.mesh is None:
         return x
     from repro_torch.distributed import collectives as C
 
     for i, entry in enumerate(spec):
+        if keep:
+            axes = axes_of(entry)
+            entry = tuple(a for a in axes if a not in keep)
+            if entry and len(entry) != len(axes):
+                raise ValueError(f"dim {i} of {spec} is split over kept "
+                                 f"and other axes together")
+            entry = entry[0] if len(entry) == 1 else (entry or None)
+            assert not set(axes_of(entry)) & set(keep), (spec, keep)
         if par.size(entry) > 1:
             x = C.all_gather(x, entry, par.mesh, dim=i, tiled=True)
     return x

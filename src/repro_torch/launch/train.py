@@ -22,7 +22,9 @@ save.
 ``gloo`` for ranks that share one GPU) and a (data, model) mesh.  Every
 rank draws the same global batch and keeps its rows, so a step equals the
 single-device step; params and moments live as each rank's blocks
-(``train.loop.shard_params``).  Checkpoints hold the global arrays in the
+(``train.loop.shard_params``).  The transformer family computes on its
+``model`` blocks with the residual sequence-sharded between layers
+(``models.tensor_parallel``; ``shard_activations_seq``).  Checkpoints hold the global arrays in the
 JAX format, written by rank 0, and restore onto any mesh
 (``distributed.elastic``); after the last save each rank prints the
 sha256 of its blocks of the saved state (``tree.digest``), which the

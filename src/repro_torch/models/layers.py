@@ -68,36 +68,334 @@ def _window_ok(q_pos, kv_pos, window: int):
     return (window <= 0) | (q_pos - kv_pos < window)
 
 
+# ---------------------------------------------------------------------------
+# Chunked online-softmax attention (prefill, training, the Whisper encoder
+# and cross attention)
+# ---------------------------------------------------------------------------
+
+# padded kv slots take a position past every reachable one (not 0: callers
+# pass semantic positions, and a 0 would alias the real position 0)
+KV_PAD_POSITION = (2 ** 31 - 1) // 2
+
+
+class _Geometry:
+    """Shapes and chunking of one call: q (B, Sq, Hq, D), k/v (B, Skv,
+    Hkv, D), chunks of ``qc`` queries by ``kc`` keys, the last of each cut
+    short and padded (zero q rows, zero kv rows at ``KV_PAD_POSITION``)."""
+
+    def __init__(self, q, k, q_chunk, kv_chunk):
+        self.B, self.Sq, self.Hq, self.D = q.shape
+        self.Skv, self.Hkv = k.shape[1], k.shape[2]
+        self.G = self.Hq // self.Hkv
+        self.qc = min(q_chunk, self.Sq)
+        self.kc = min(kv_chunk, self.Skv)
+        self.nq = -(-self.Sq // self.qc)
+        self.nkv = -(-self.Skv // self.kc)
+        self.scale = 1.0 / math.sqrt(self.D)
+
+    def visible(self, i: int, j: int, causal: bool, aligned: bool) -> bool:
+        """Whether kv chunk j can hold a key that q chunk i sees.  Known
+        only for ``aligned`` causal calls (both positions are arange):
+        then chunk j is hidden when its first position lies past the
+        chunk's last query.  Chunk 0 holds position 0, so a row reaching
+        a hidden chunk already has a finite running max, and the chunk
+        would add exactly 0 to its sums."""
+        if not (causal and aligned):
+            return True
+        return j * self.kc <= min((i + 1) * self.qc, self.Sq) - 1
+
+    def tiles(self, causal: bool, aligned: bool) -> int:
+        return sum(self.visible(i, j, causal, aligned)
+                   for i in range(self.nq) for j in range(self.nkv))
+
+
+def _chunk(x, i: int, n: int, dim: int = 1, value=0):
+    """Chunk ``i`` of length ``n`` along ``dim``, the last padded to ``n``
+    with ``value``."""
+    part = x.narrow(dim, i * n, min(n, x.shape[dim] - i * n))
+    short = n - part.shape[dim]
+    if not short:
+        return part
+    pad = [0, 0] * (x.dim() - 1 - dim) + [0, short]
+    return F.pad(part, pad, value=value)
+
+
+def _q_tile(q, geo, i):
+    """Queries of chunk i as (B, Hkv, G qc, D) f32."""
+    qi = _chunk(q, i, geo.qc).reshape(geo.B, geo.qc, geo.Hkv, geo.G, geo.D)
+    return qi.permute(0, 2, 3, 1, 4).reshape(
+        geo.B, geo.Hkv, geo.G * geo.qc, geo.D).float()
+
+
+def _kv_tile(x, geo, j):
+    """Keys or values of chunk j as (B, Hkv, kc, D) f32."""
+    return _chunk(x, j, geo.kc).permute(0, 2, 1, 3).float()
+
+
+def _tile_scores(qi, kj, qp, kp, geo, causal, window, softcap, kv_len):
+    """The masked f32 scores of one tile, (B, Hkv, G, qc, kc), and the
+    tanh of the softcap (None without one) for the backward."""
+    s = torch.matmul(qi, kj.transpose(-1, -2)).mul_(geo.scale)
+    s = s.view(geo.B, geo.Hkv, geo.G, geo.qc, geo.kc)
+    th = None
+    if softcap:
+        th = torch.tanh(s / softcap)
+        s = th * softcap
+    qp, kp = qp[:, :, None], kp[:, None, :]
+    mask = None
+    if window > 0:
+        mask = qp - kp < window
+    if causal:
+        mask = kp <= qp if mask is None else mask.logical_and_(kp <= qp)
+    if kv_len is not None:
+        ok = kp < kv_len[:, None, None]
+        mask = ok if mask is None else mask.logical_and_(ok)
+    if mask is not None:
+        s.masked_fill_(mask.logical_not_()[:, None, None], NEG_INF)
+    return s, th
+
+
+def _kv_len(geo, device):
+    """The kv length mask the JAX package applies when it pads kv: Skv
+    for every row (None without padding)."""
+    if geo.Skv % geo.kc == 0:
+        return None
+    return torch.full((geo.B,), geo.Skv, dtype=torch.long, device=device)
+
+
+def _forward_loop(q, k, v, qpos, kvpos, kv_len, geo, opts):
+    """The double loop.  Returns (o (B, Sq, Hq, D) in q's dtype, lse (B,
+    Hkv, G, nq qc) f32: each row's m + log l)."""
+    causal, window, softcap, aligned = opts
+    B, Hkv, G, qc, D = geo.B, geo.Hkv, geo.G, geo.qc, geo.D
+    out = q.new_empty((B, geo.Sq, geo.Hq, D))
+    lse = torch.empty((B, Hkv, G, geo.nq * qc), dtype=torch.float32,
+                      device=q.device)
+    for i in range(geo.nq):
+        qi = _q_tile(q, geo, i)
+        qp = _chunk(qpos, i, qc)
+        o = torch.zeros((B, Hkv, G * qc, D), dtype=torch.float32,
+                        device=q.device)
+        m = torch.full((B, Hkv, G, qc), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        for j in range(geo.nkv):
+            if not geo.visible(i, j, causal, aligned):
+                continue
+            kp = _chunk(kvpos, j, geo.kc, value=KV_PAD_POSITION)
+            s, _ = _tile_scores(qi, _kv_tile(k, geo, j), qp, kp, geo,
+                                causal, window, softcap, kv_len)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = s.sub_(m_new[..., None]).exp_()
+            corr = torch.exp(m - m_new)
+            l.mul_(corr).add_(p.sum(dim=-1))
+            if v.dtype != torch.float32:  # P.V reads p in v's dtype
+                p.copy_(p.to(v.dtype))
+            o.mul_(corr.view(B, Hkv, G * qc, 1))
+            o.add_(torch.matmul(p.view(B, Hkv, G * qc, geo.kc),
+                                _kv_tile(v, geo, j)))
+            m = m_new
+            del s, p  # the next tile's scores replace this one's
+        o = o.view(B, Hkv, G, qc, D) / torch.clamp_min(l, 1e-30)[..., None]
+        n = min(qc, geo.Sq - i * qc)  # the padded rows are dropped
+        out[:, i * qc:i * qc + n] = o[:, :, :, :n].permute(
+            0, 3, 1, 2, 4).reshape(B, n, geo.Hq, D).to(q.dtype)
+        lse[..., i * qc:(i + 1) * qc] = m + torch.log(l)
+    return out, lse
+
+
+def _backward_loop(q, k, v, o, do, lse, qpos, kvpos, kv_len, geo, opts):
+    """Gradients by recomputing each tile from q, k, v and the rows'
+    logsumexp: p = exp(s - lse), dv += p^T do, dp = do v^T, ds = p (dp -
+    delta) with delta = rowsum(do o), through the softcap's tanh, then dq
+    += ds k and dk += ds^T q (both scaled).  Holds one tile's scores and
+    one of its products at a time."""
+    causal, window, softcap, aligned = opts
+    B, Hkv, G, qc, kc, D = geo.B, geo.Hkv, geo.G, geo.qc, geo.kc, geo.D
+    dq = torch.empty((B, geo.Sq, geo.Hq, D), dtype=q.dtype,
+                     device=q.device)
+    dk = torch.zeros((B, Hkv, geo.nkv * kc, D), dtype=torch.float32,
+                     device=q.device)
+    dv = torch.zeros_like(dk)
+    for i in range(geo.nq):
+        qi = _q_tile(q, geo, i)
+        doi = _q_tile(do, geo, i)
+        delta = (doi * _q_tile(o, geo, i)).sum(-1).view(B, Hkv, G, qc)
+        lsei = lse[..., i * qc:(i + 1) * qc]
+        qp = _chunk(qpos, i, qc)
+        dqi = torch.zeros_like(qi)
+        for j in range(geo.nkv):
+            if not geo.visible(i, j, causal, aligned):
+                continue
+            kp = _chunk(kvpos, j, kc, value=KV_PAD_POSITION)
+            kj, vj = _kv_tile(k, geo, j), _kv_tile(v, geo, j)
+            s, th = _tile_scores(qi, kj, qp, kp, geo, causal, window,
+                                 softcap, kv_len)
+            p = s.sub_(lsei[..., None]).exp_()
+            # dV reads p as P.V did, in v's dtype (a rounded f32 copy)
+            pv = p if v.dtype == torch.float32 else p.to(v.dtype).float()
+            dv[:, :, j * kc:(j + 1) * kc] += torch.matmul(
+                pv.view(B, Hkv, G * qc, kc).transpose(-1, -2), doi)
+            del pv
+            dp = torch.matmul(doi, vj.transpose(-1, -2)).view_as(p)
+            ds = dp.sub_(delta[..., None]).mul_(p)
+            del p, s
+            if th is not None:
+                ds.mul_(1.0 - th * th)
+                del th
+            ds = ds.view(B, Hkv, G * qc, kc).mul_(geo.scale)
+            dqi += torch.matmul(ds, kj)
+            dk[:, :, j * kc:(j + 1) * kc] += torch.matmul(
+                ds.transpose(-1, -2), qi)
+            del ds, dp
+        n = min(qc, geo.Sq - i * qc)
+        dq[:, i * qc:i * qc + n] = dqi.view(B, Hkv, G, qc, D)[
+            :, :, :, :n].permute(0, 3, 1, 2, 4).reshape(
+            B, n, geo.Hq, D).to(q.dtype)
+    dk = dk[:, :, :geo.Skv].permute(0, 2, 1, 3).to(k.dtype)
+    dv = dv[:, :, :geo.Skv].permute(0, 2, 1, 3).to(v.dtype)
+    return dq, dk, dv
+
+
+def chunked_attention_cost(geo: _Geometry, causal: bool, aligned: bool,
+                           itemsize: int, *, backward: bool = False):
+    """(flops, bytes) of the loop: two products per tile forward (scores
+    and P.V), five backward (scores again, dV, dP, dQ, dK); bytes the
+    operands read once per tile they enter and the f32 tile passes of the
+    eager ops (about 8 forward, 12 backward)."""
+    tiles = geo.tiles(causal, aligned)
+    per = 2.0 * geo.B * geo.Hq * geo.qc * geo.kc * geo.D
+    tile_bytes = 4 * geo.B * geo.Hq * geo.qc * geo.kc
+    q_bytes = geo.B * geo.qc * geo.Hq * geo.D * itemsize
+    kv_bytes = 2 * geo.B * geo.kc * geo.Hkv * geo.D * itemsize
+    if backward:
+        return (5 * per * tiles,
+                float(tiles * (12 * tile_bytes + kv_bytes)
+                      + geo.nq * 4 * q_bytes + 2 * geo.nkv * kv_bytes))
+    return (2 * per * tiles,
+            float(tiles * (8 * tile_bytes + kv_bytes) + geo.nq * 2 * q_bytes))
+
+
+def chunked_attention_workspace(geo: _Geometry, itemsize: int, *,
+                                backward: bool = False) -> int:
+    """Bytes the loop holds at its peak besides its inputs and what it
+    returns.  Forward: one f32 score tile (p in place of it), the rows'
+    logsumexp, the q chunk, the (o, m, l) carry with the new max and the
+    correction, one kv chunk, the chunk's P.V; in a narrower v dtype p's
+    rounded copy, which is live before the kv chunk and P.V are.
+    Backward: the p and dP tiles (in a narrower v dtype p's rounded f32
+    copy and its v-dtype step first, 2.5 tiles), the q, dO and dQ chunks,
+    a kv chunk pair and one product's kv chunk, the rows' delta, and the
+    f32 dK, dV accumulators unless they are the returned grads (f32).
+    A softcap adds its tanh tile (no config of the registry has one).
+    The dry-run allocates this on ``meta`` so its temp counts it."""
+    B, Hkv, G, qc, kc, D = geo.B, geo.Hkv, geo.G, geo.qc, geo.kc, geo.D
+    tile = 4 * B * Hkv * G * qc * kc
+    rows = 4 * B * Hkv * G * qc
+    qf = rows * D
+    kvf = 4 * B * Hkv * kc * D
+    narrow = itemsize != 4
+    if not backward:
+        ws = tile + rows * geo.nq + 3 * qf + 6 * rows + 2 * kvf
+        if narrow:
+            ws += tile * itemsize // 4 - qf - kvf
+        return ws
+    ws = 2 * tile + 3 * qf + 3 * kvf + 2 * rows
+    if narrow:
+        ws += tile // 2 + 2 * 4 * B * Hkv * geo.nkv * kc * D
+    return ws
+
+
+class _ChunkedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, kv_positions, geo, opts):
+        qpos = q_positions.expand(geo.B, geo.Sq).long()
+        kvpos = kv_positions.expand(geo.B, geo.Skv).long()
+        o, lse = _forward_loop(q, k, v, qpos, kvpos, _kv_len(geo, q.device),
+                               geo, opts)
+        ctx.save_for_backward(q, k, v, o, lse, qpos, kvpos)
+        ctx.args = (geo, opts)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, qpos, kvpos = ctx.saved_tensors
+        geo, opts = ctx.args
+        dq, dk, dv = _backward_loop(q, k, v, o, do.contiguous(), lse, qpos,
+                                    kvpos, _kv_len(geo, q.device), geo, opts)
+        return dq, dk, dv, None, None, None, None
+
+
+class _MetaChunkedAttention(torch.autograd.Function):
+    """The loop on ``meta`` (the dry-run) as one op: an empty output, the
+    loop's cost to the op hook, its working set allocated and released so
+    the dry-run's live-storage meter sees the peak.  Backward likewise."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, geo, opts):
+        ctx.args = (geo, opts, q.shape, k.shape, q.dtype, k.dtype)
+        out = q.new_empty(q.shape)
+        _meta_tile_set(geo, opts, q.element_size(), backward=False)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        geo, opts, qs, ks, qd, kd = ctx.args
+        grads = (do.new_empty(qs, dtype=qd), do.new_empty(ks, dtype=kd),
+                 do.new_empty(ks, dtype=kd))
+        _meta_tile_set(geo, opts, do.element_size(), backward=True)
+        return (*grads, None, None)
+
+
+def _meta_tile_set(geo, opts, itemsize, *, backward):
+    from repro_torch.kernels import ops
+
+    causal, _, _, aligned = opts
+    if ops.op_hook() is not None:
+        ops.record_op("chunked_attention_bwd" if backward
+                      else "chunked_attention",
+                      *chunked_attention_cost(geo, causal, aligned, itemsize,
+                                              backward=backward))
+    ws = torch.empty(chunked_attention_workspace(geo, itemsize,
+                                                 backward=backward),
+                     dtype=torch.uint8, device="meta")
+    del ws
+
+
 def chunked_attention(q, k, v, *, q_positions, kv_positions,
                       causal: bool = True, window: int = 0,
-                      softcap: float = 0.0) -> torch.Tensor:
-    """Prefill attention as plain tensor ops.
+                      softcap: float = 0.0, q_chunk: int = 512,
+                      kv_chunk: int = 1024,
+                      aligned: bool = False) -> torch.Tensor:
+    """Flash-style attention as plain tensor ops: a loop over q chunks
+    and, inside, over kv chunks, with an f32 online softmax; the JAX
+    package's double scan (``repro.models.layers.chunked_attention``).
 
-    q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); positions (B, S).  Scores
-    in f32, masked softmax, probabilities cast to v's dtype for P·V with
-    f32 accumulation — the JAX package's chunked online softmax reduced
-    to its single-chunk case (its chunks are 512 queries by 1024 keys;
-    past them, as over Whisper's 1500 encoder frames, the two differ by
-    f32 rounding only).  Returns (B, Sq, Hq, D) in q.dtype."""
-    B, Sq, Hq, D = q.shape
-    Hkv = k.shape[2]
-    G = Hq // Hkv
-    qg = q.reshape(B, Sq, Hkv, G, D).float()
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (1.0 / math.sqrt(D))
-    if softcap:
-        s = torch.tanh(s / softcap) * softcap
-    qp = q_positions[:, :, None]
-    kp = kv_positions[:, None, :]
-    mask = _window_ok(qp, kp, window)
-    if causal:
-        mask = mask & (kp <= qp)
-    s = torch.where(mask[:, None, None], s, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), v.float())
-    o = pv / torch.clamp_min(l, 1e-30)
-    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+    q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); positions (B, S) or
+    broadcastable.  Scores in f32 (softcapped, masked to ``NEG_INF`` by
+    causality and ``window``), a running (o, m, l) in f32, p cast to v's
+    dtype for P.V with f32 accumulation, o / max(l, 1e-30).  The last
+    chunk of each side is padded: zero q rows, sliced off the output;
+    zero kv rows at ``KV_PAD_POSITION``, masked with every position at or
+    past Skv by the kv length the JAX package sets when it pads.  Never
+    holds more than one (B, Hkv, G, q_chunk, kv_chunk) f32 score tile
+    (and its exp, in place) at a time, forward or backward: the backward
+    recomputes each tile from q, k, v and the rows' logsumexp, the
+    pattern of the JAX package's ``jax.checkpoint`` per kv block.
+
+    ``aligned``: q_positions and kv_positions are both arange(S) rows
+    (the plain prefill and training), so a causal call skips the kv
+    chunks wholly past a q chunk (:meth:`_Geometry.visible`); the
+    skipped chunks would add exactly 0.
+
+    On ``meta`` (the dry-run) the loop is costed as one op
+    (``_MetaChunkedAttention``).  Returns (B, Sq, Hq, D) in q's dtype."""
+    geo = _Geometry(q, k, q_chunk, kv_chunk)
+    opts = (causal, window, softcap, aligned)
+    if q.device.type == "meta":
+        return _MetaChunkedAttention.apply(q, k, v, geo, opts)
+    return _ChunkedAttention.apply(q, k, v, q_positions, kv_positions, geo,
+                                   opts)
 
 
 # ---------------------------------------------------------------------------
@@ -256,9 +554,12 @@ def _plain_paged_decode_attention(q, k_pool, v_pool, table, cache_len,
 def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, window: int, cache=None,
                     cache_len=None, prefix_kv=None, prefix_positions=None,
-                    cross_kv=None, causal: bool = True):
+                    cross_kv=None, causal: bool = True,
+                    aligned: bool = False):
     """Attention block.  Returns (out, (k, v)), or (out, None) for cross
-    attention.
+    attention.  ``aligned``: ``positions`` are arange(S) rows (a plain
+    prefill or training), so the causal chunked attention skips hidden
+    chunks (:func:`chunked_attention`).
 
     - prefill (``cache`` None): attention over x itself (causal unless
       ``causal=False``, the Whisper encoder's); returns the sequence's
@@ -321,7 +622,8 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     elif cache is None:
         o = chunked_attention(q, k, v, q_positions=positions,
                               kv_positions=positions, causal=causal,
-                              window=window, softcap=cfg.logit_softcap)
+                              window=window, softcap=cfg.logit_softcap,
+                              aligned=aligned)
     elif "table" not in cache:
         ring = cfg.ring_cache
         S_cache = cache["k"].shape[1]
@@ -369,6 +671,33 @@ def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def embed(p: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return p["table"].to(dtype)[tokens.long()]
+
+
+class _TokenNLL(torch.autograd.Function):
+    """logsumexp(logits) - logits[target] over the last dim; backward
+    writes (softmax - onehot) g into one tensor (the autograd of the two
+    ops holds five of the logits' size at its peak: the exp, its
+    product, the gather's scattered zeros and their sum), the same values
+    as that autograd's."""
+
+    @staticmethod
+    def forward(ctx, logits, targets):
+        lse = torch.logsumexp(logits, dim=-1)
+        idx = targets.long()[..., None]
+        ctx.save_for_backward(logits, lse, idx)
+        return lse - torch.gather(logits, -1, idx)[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, idx = ctx.saved_tensors
+        grad = (logits - lse[..., None]).exp_().mul_(g[..., None])
+        grad.scatter_add_(-1, idx, -g[..., None])
+        return grad, None
+
+
+def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-token NLL (..., V) f32 logits, (...) targets -> (...)."""
+    return _TokenNLL.apply(logits, targets)
 
 
 def lm_logits(p: dict, x: torch.Tensor, softcap: float = 0.0):

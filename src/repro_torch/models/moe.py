@@ -157,10 +157,11 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
     """x: (B, S, d) -> (y (B, S, d), aux_loss scalar); the B * S tokens
     route and share the experts' capacity as one call.
 
-    Under a mesh the parameters are global (the same on every rank) and
-    ``x`` holds this rank's rows of a batch split over the mesh axes
-    ``row_axes`` (None: the whole batch, the same on every rank; the
-    sequence-parallel decode), ``y`` likewise.  The tokens are regrouped
+    Under a mesh the parameters are global (the same on every rank; under
+    tensor parallelism the experts may be the rank's ``model`` block of
+    their ff dim, as stored) and ``x`` holds this rank's rows of a batch
+    split over the mesh axes ``row_axes`` (None: the whole batch, the
+    same on every rank; the sequence-parallel decode), ``y`` likewise.  The tokens are regrouped
     over the reference's shards, ``par.batch_axes_for`` of the global
     batch, when those are not ``row_axes``; each shard routes its own
     tokens, so the capacity and the drops are the JAX package's."""
@@ -177,7 +178,17 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
     tp = par.tp and "model" in par.axes
     specs = {"gate": (None, None, "model"), "up": (None, None, "model"),
              "down": (None, "model", None)}
-    experts = {name: shard_of(w, specs[name], par) if tp else w
+    f, n_model = cfg.moe.expert_d_ff, par.n_model
+
+    def ff_block(name, w):
+        # the tensor-parallel layout reads the stored ff block; a global
+        # stack is cut to it
+        if n_model > 1 and w.shape[-2 if name == "down" else -1] \
+                * n_model == f:
+            return w
+        return shard_of(w, specs[name], par)
+
+    experts = {name: ff_block(name, w) if tp else w
                for name, w in expert_weights(p["experts"], x.dtype).items()}
     args = (x, p["router"]["w"], experts, m, "model" if tp else None, mesh)
     if torch.is_grad_enabled() and (x.requires_grad or any(

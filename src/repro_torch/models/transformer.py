@@ -138,7 +138,8 @@ def _layer(p, x, cfg, *, positions, window, cache=None, cache_len=None,
     h, kv = L.attention_block(
         p["attn"], L.rmsnorm(p["attn_norm"], x, cfg.norm_eps), cfg,
         positions=positions, window=window, cache=cache, cache_len=cache_len,
-        prefix_kv=prefix_kv, prefix_positions=prefix_positions)
+        prefix_kv=prefix_kv, prefix_positions=prefix_positions,
+        aligned=cache is None and prefix_kv is None)
     x = x + h
     hn = L.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
     if "moe" in p:

@@ -13,9 +13,12 @@ rank stores what a device of the JAX layout stores.  Each rank takes
 its rows of the global batch (``par.spec("batch")``), and the model
 reads the blocks through a view that gathers a leaf where the model
 uses it (``gather_leaf``; under remat inside each layer's recompute);
-the gathers' backward reduce-scatters the grads.  The ``model`` axis
-thus computes on gathered weights, not with Megatron tensor parallelism,
-and ``shard_activations_seq`` is not honoured.
+the gathers' backward reduce-scatters the grads.  The transformer family
+computes on its ``model`` blocks (``models.tensor_parallel``, read
+through :func:`local_view`, which gathers a leaf over every axis but
+``model``), with the residual sequence-sharded under
+``shard_activations_seq``; the other families read every leaf gathered
+(:func:`gathered_view`).
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from repro_torch.distributed.sharding import (ParallelContext, axes_of,
                                               gather_leaf, param_specs,
                                               shard_of, stack_layers)
 from repro_torch.models import api
+from repro_torch.models import layers as L
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
                                          init_opt_state)
 
@@ -47,9 +51,9 @@ def lm_loss(params, batch, cfg: ModelConfig,
     """batch = (tokens, targets, mask[, embeddings]).  Returns (mean NLL
     over the mask + ``aux_weight`` x aux, {"loss": the NLL, "aux",
     "tokens": the mask's sum}).  The NLL is logsumexp(logits) minus the
-    target's logit, read by a gather (the reference contracts a one-hot
-    over the vocab, equal on finite logits without the (B, S, V) f32
-    one-hot).
+    target's logit, read by a gather (``layers.token_nll``; the reference
+    contracts a one-hot over the vocab, equal on finite logits without
+    the (B, S, V) f32 one-hot).
 
     Under a mesh the batch is this rank's rows of ``par.spec("batch")``
     and the mask's sum is taken over every rank's rows; the first value
@@ -57,16 +61,21 @@ def lm_loss(params, batch, cfg: ModelConfig,
     denominator, plus the aux term over the number of batch shards), so
     that the sum over ranks, divided by the ranks that share each row, is
     the global loss.  The metrics are global."""
+    from repro_torch.models import tensor_parallel as TP
+
     tokens, targets, mask = batch[:3]
     kw = {"embeddings": batch[3]} if len(batch) > 3 else {}
-    if _sharded(par) and cfg.moe:
-        kw["par"] = par
-    logits, _, aux = api.get_model(cfg).forward(params, tokens, cfg,
-                                                return_aux=True, **kw)
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    nll = lse - tgt
+    if _sharded(par) and TP.applies(cfg, par):
+        # this rank's vocab block of the logits, reduced over "model"
+        tp = TP.TPLayout(par, rows=par.spec("batch")[0])
+        logits, aux = TP.forward(params, tokens, cfg, tp, **kw)
+        nll = TP.token_nll(logits.float(), targets, cfg, tp)
+    else:
+        if _sharded(par) and cfg.moe:
+            kw["par"] = par
+        logits, _, aux = api.get_model(cfg).forward(params, tokens, cfg,
+                                                    return_aux=True, **kw)
+        nll = L.token_nll(logits.float(), targets)
     mask = mask.float()
     if not _sharded(par):
         denom = torch.clamp_min(mask.sum(), 1.0)
@@ -102,19 +111,19 @@ def _is_layer_stack(key: str) -> bool:
     return key == "layers" or key.endswith("_layers")
 
 
-def _gather(block, spec, par, layer):
+def _gather(block, spec, par, layer, keep=()):
     if layer is None:
-        return gather_leaf(block, spec, par)
+        return gather_leaf(block, spec, par, keep=keep)
     if spec[0] is None:
-        return gather_leaf(block[layer], spec[1:], par)
+        return gather_leaf(block[layer], spec[1:], par, keep=keep)
     # the layer dim itself is sharded (the JAX rules shard whisper's
     # "enc_layers" / "dec_layers" stacks, which they do not see as stacked)
-    return gather_leaf(block, spec, par)[layer]
+    return gather_leaf(block, spec, par, keep=keep)[layer]
 
 
 class _Layers(Sequence):
-    def __init__(self, blocks, specs, par):
-        self._b, self._s, self._par = blocks, specs, par
+    def __init__(self, blocks, specs, par, keep):
+        self._b, self._s, self._par, self._keep = blocks, specs, par, keep
         self._n = T.flatten(blocks)[0][0].shape[0]
 
     def __len__(self):
@@ -123,7 +132,7 @@ class _Layers(Sequence):
     def __getitem__(self, i):
         if not 0 <= i < self._n:
             raise IndexError(i)
-        return _View(self._b, self._s, self._par, layer=i)
+        return _View(self._b, self._s, self._par, layer=i, keep=self._keep)
 
 
 class _View(Mapping):
@@ -133,27 +142,32 @@ class _View(Mapping):
     the backward's recompute); a leaf outside the layers is gathered once
     per view (the tied embedding serves the lookup and the LM head).  A
     quantized leaf ({"codes", "scales"[, "codebook"]}) reads as a dict of
-    its gathered parts."""
+    its gathered parts.  ``keep``: axes not gathered over (each leaf then
+    reads as the rank's block along them)."""
 
-    def __init__(self, blocks, specs, par, layer=None, memo=None):
+    def __init__(self, blocks, specs, par, layer=None, memo=None, keep=()):
         self._b, self._s, self._par, self._layer = blocks, specs, par, layer
-        self._memo = memo
+        self._memo, self._keep = memo, keep
 
     def __getitem__(self, k):
         b, s = self._b[k], self._s[k]
         if isinstance(b, dict) and "codes" in b:  # a quantized leaf, whole
-            return {n: self._leaf(b[n], s[n]) for n in b}
+            parts = {n: self._leaf(b[n], s[n]) for n in b}
+            return _align_parts(parts, b, s, self._par, self._layer,
+                                self._keep)
         if isinstance(b, dict):
             if self._layer is None and _is_layer_stack(k):
-                return _Layers(b, s, self._par)
-            return _View(b, s, self._par, self._layer, self._memo)
+                return _Layers(b, s, self._par, self._keep)
+            return _View(b, s, self._par, self._layer, self._memo,
+                         self._keep)
         return self._leaf(b, s)
 
     def _leaf(self, b, s):
         if self._memo is None:
-            return _gather(b, s, self._par, self._layer)
+            return _gather(b, s, self._par, self._layer, self._keep)
         if id(b) not in self._memo:
-            self._memo[id(b)] = _gather(b, s, self._par, self._layer)
+            self._memo[id(b)] = _gather(b, s, self._par, self._layer,
+                                        self._keep)
         return self._memo[id(b)]
 
     def __contains__(self, k):
@@ -166,9 +180,39 @@ class _View(Mapping):
         return len(self._b)
 
 
+def _align_parts(parts, blocks, specs, par, layer, keep):
+    """A quantized leaf read as the rank's blocks along ``keep``: a part
+    stored whole where its codes are split (its dim did not divide, e.g.
+    Q8 scales of K / 32 rows) is cut to the same block."""
+    if not keep:
+        return parts
+    cspec = specs["codes"][1:] if layer is not None and \
+        specs["codes"][0] is None else specs["codes"]
+    for name, t in parts.items():
+        sspec = specs[name][1:] if layer is not None and \
+            specs[name][0] is None else specs[name]
+        for d, entry in enumerate(cspec):
+            kept = [a for a in axes_of(entry) if a in keep]
+            if kept and d < t.dim() and name != "codebook" and \
+                    not set(kept) & set(axes_of(sspec[d] if d < len(sspec)
+                                                else None)):
+                parts[name] = shard_of(t, (None,) * d + (tuple(kept),),
+                                       par).contiguous()
+    return parts
+
+
 def gathered_view(blocks, specs, par: ParallelContext):
     """The model's view of a sharded tree (see :class:`_View`)."""
     return _View(blocks, specs, par, memo={})
+
+
+def local_view(blocks, specs, par: ParallelContext):
+    """The tensor-parallel view of a sharded tree: each leaf gathered over
+    every axis but ``model`` (the FSDP ``embed_fsdp`` dims over ``data``),
+    so it reads as the rank's ``model`` block of the leaf, or the whole
+    leaf where its spec does not name ``model``.  ``gather_leaf`` asserts
+    that no weight is gathered over ``model``."""
+    return _View(blocks, specs, par, memo={}, keep=("model",))
 
 
 def shard_params(params, par: ParallelContext):
@@ -236,10 +280,21 @@ def _leaves(tree, path=()):
         yield path, tree
 
 
+def model_view(blocks, specs, cfg: ModelConfig, par: ParallelContext):
+    """The view a sharded program of ``cfg`` reads its weights through:
+    :func:`local_view` where the tensor-parallel layout applies
+    (``models.tensor_parallel.applies``), else :func:`gathered_view`."""
+    from repro_torch.models import tensor_parallel as TP
+
+    if TP.applies(cfg, par):
+        return local_view(blocks, specs, par)
+    return gathered_view(blocks, specs, par)
+
+
 def _sharded_value_and_grad(blocks, specs, batch, cfg, par):
     leaves, tspec = T.flatten(blocks)
     ps = [p.detach().requires_grad_(True) for p in leaves]
-    view = gathered_view(T.unflatten(tspec, ps), specs, par)
+    view = model_view(T.unflatten(tspec, ps), specs, cfg, par)
     loss, metrics = lm_loss(view, batch, cfg, par)
     gs = torch.autograd.grad(loss, ps, allow_unused=True)
     gs = [torch.zeros_like(p) if g is None else g for p, g in zip(ps, gs)]
@@ -248,8 +303,11 @@ def _sharded_value_and_grad(blocks, specs, batch, cfg, par):
 
 def _finish_grads(grads, specs, par):
     """Sum each block's grad over the axes it is replicated on (the
-    gathers' backward summed the others) and divide by the ranks that
-    computed each batch row (the axes outside ``par.spec("batch")``)."""
+    gathers' backward summed the others; a block kept on ``model`` by the
+    tensor-parallel layout has its whole grad already) and divide by the
+    ranks that computed each batch row (the axes outside
+    ``par.spec("batch")``: under tensor parallelism every ``model`` rank
+    computes the same loss, so the sum over ranks counts it m times)."""
     rows = axes_of(par.spec("batch")[0])
     dup = math.prod(s for a, s in par.shape.items() if a not in rows)
 

@@ -21,11 +21,12 @@ one JAX subprocess with 4 forced host devices runs the reference's
 - the MoE's sharded branch on (2, 2), tp and not: y and aux within 1e-5
   of the JAX package's sharded ``moe_ffn``;
 - the sharded train step on (2, 2) (and tp=False, microbatches=2,
-  ``grad_transform=ef_quantize``) against JAX's single-device
-  ``make_train_step``, and on the MoE config (tp and not) against JAX's
-  step under a (2, 2) mesh (the MoE routes each token shard on its own):
-  the loss, the grad norm, each leaf's finished grad, the params and
-  each leaf's update;
+  ``grad_transform=ef_quantize``, the residual sequence-sharded, a GQA
+  config whose q heads split over ``model`` and whose one kv head does
+  not) against JAX's single-device ``make_train_step``, and on the MoE
+  config (tp and not) against JAX's step under a (2, 2) mesh (the MoE
+  routes each token shard on its own): the loss, the grad norm, each
+  leaf's finished grad, the params and each leaf's update;
 - ``ef_quantize`` on blocks bit-equal to JAX's on the global leaves;
 - ``compressed_psum_local`` within one int8 step of JAX's;
 - elastic restore onto (2, 2) and (4, 1), bit-equal, from a checkpoint
@@ -109,19 +110,32 @@ def train_cfg():
     return tiny(d_ff=128)
 
 
+def gqa_cfg():
+    """Four q heads of 16 (two a ``model`` rank) over one kv head, whose
+    16 columns split 8 and 8: each rank fetches the other's half."""
+    return tiny(d_ff=128, n_kv_heads=1)
+
+
 def train_batch():
     rng = np.random.default_rng(1)
     toks = rng.integers(0, 320, (8, 32)).astype(np.int32)
     return toks, np.roll(toks, -1, 1), np.ones((8, 32), np.float32)
 
 
-# name -> (tp, microbatches, ef_quantize, MoE config); every one on (2, 2)
-TRAIN_VARIANTS = {"plain": (True, 1, False, False),
-                  "notp": (False, 1, False, False),
-                  "mb2": (True, 2, False, False),
-                  "ef": (True, 1, True, False),
-                  "moe": (True, 1, False, True),
-                  "moe-notp": (False, 1, False, True)}
+# name -> (tp, microbatches, ef_quantize, config, shard_activations_seq);
+# every one on (2, 2)
+TRAIN_VARIANTS = {"plain": (True, 1, False, "dense", False),
+                  "notp": (False, 1, False, "dense", False),
+                  "mb2": (True, 2, False, "dense", False),
+                  "ef": (True, 1, True, "dense", False),
+                  "seq": (True, 1, False, "dense", True),
+                  "gqa": (True, 1, False, "gqa", True),
+                  "moe": (True, 1, False, "moe", False),
+                  "moe-notp": (False, 1, False, "moe", False)}
+
+
+def variant_cfg(kind):
+    return {"dense": train_cfg, "gqa": gqa_cfg, "moe": moe_cfg}[kind]()
 
 
 def moe_cfg():
@@ -232,9 +246,9 @@ def _case_train(meshes):
 
     batch = tuple(torch.from_numpy(a) for a in train_batch())
     out = {}
-    for name, (tp, mb, ef, moe) in TRAIN_VARIANTS.items():
-        cfg = moe_cfg() if moe else train_cfg()
-        par = PC(mesh=meshes["2x2"], tp=tp)
+    for name, (tp, mb, ef, kind, seq) in TRAIN_VARIANTS.items():
+        cfg = variant_cfg(kind)
+        par = PC(mesh=meshes["2x2"], tp=tp, shard_activations_seq=seq)
         blocks, specs = TL.shard_params(
             api.get_model(cfg).init_params(cfg, seed=0, device="cpu"), par)
         seen = {}
@@ -663,19 +677,21 @@ def _jax_train_refs():
     from repro.train.loop import make_train_step
     from repro.train.optimizer import AdamWConfig, init_opt_state
 
-    cfg = train_cfg()
-    jcfg = _jax_cfg(cfg)
-    p = _jax_params(cfg)
-    init = dict(_paths(jax.tree.map(np.asarray, p)))
     batch = tuple(jnp.asarray(a) for a in train_batch())
     refs = {}
-    for name, (tp, mb, ef, moe) in TRAIN_VARIANTS.items():
-        if moe:
+    for name, (tp, mb, ef, kind, seq) in TRAIN_VARIANTS.items():
+        if kind == "moe":
             continue  # JAX's step under a mesh, in the JAX subprocess
-        if not tp:
+        if (not tp or seq) and kind == "dense":
+            # one device has no model axis and no sequence split
             refs[name] = refs["plain"]
             continue
-        def run(p, o, b, mb=mb, ef=ef):
+        cfg = variant_cfg(kind)
+        jcfg = _jax_cfg(cfg)
+        p = _jax_params(cfg)
+        init = dict(_paths(jax.tree.map(np.asarray, p)))
+
+        def run(p, o, b, mb=mb, ef=ef, jcfg=jcfg):
             seen = {}
 
             def gt(g):

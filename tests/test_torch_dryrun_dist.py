@@ -2,9 +2,12 @@
 
 Four ``gloo`` ranks on the CPU run two smoke cells of ``build_cell`` on a
 real (2, 2) mesh, with real tensors: a decode step whose KV cache is
-split over ``model`` (sequence-parallel attention, vocab-sharded
-sampling) and a train step (gathered weights, the gathers' backward
-reduce-scatters, the grads' sums).  Rank 0 counts every collective it
+split over ``model`` (sequence-parallel attention over heads gathered
+over ``model``, vocab-sharded sampling) and a train step (the
+tensor-parallel layout with the residual sequence-sharded: FSDP gathers
+over ``data``, the residual's gathers and reduce-scatters, the kv head
+split between the two ``model`` ranks fetched point to point, the grads'
+sums).  Rank 0 counts every collective it
 issues, by kind and by result bytes, at the ``torch.distributed`` calls.
 The test process runs the same cells as rank 0's program on ``meta``
 under an ``AbstractMesh`` of the same shape, and the recorder's counts
@@ -55,12 +58,14 @@ def _materialize(tree, vocab: int, max_len: int, gen):
 
 def _count_issued(record):
     """Wrap the process group calls the port's collectives make, adding
-    (1, the result's bytes) by kind; returns an undo."""
+    (1, the result's bytes) by kind (a point-to-point exchange: 1 and the
+    bytes received); returns an undo."""
     import torch.distributed as dist
 
     from repro_torch.distributed import collectives as C
 
-    saved = (dist.all_reduce, C._all_gather_base, C._reduce_scatter_base)
+    saved = (dist.all_reduce, C._all_gather_base, C._reduce_scatter_base,
+             C._send_recv)
 
     def add(kind, t):
         d = record.setdefault(kind, {"count": 0, "bytes": 0})
@@ -79,12 +84,20 @@ def _count_issued(record):
         add("reduce-scatter", out)
         return saved[2](out, src, *a, **k)
 
+    def send_recv(sends, recvs, *a, **k):
+        got = saved[3](sends, recvs, *a, **k)
+        d = record.setdefault("collective-permute", {"count": 0, "bytes": 0})
+        d["count"] += 1
+        d["bytes"] += sum(t.numel() * t.element_size() for t in got)
+        return got
+
     dist.all_reduce = all_reduce
     C._all_gather_base, C._reduce_scatter_base = gather, scatter
+    C._send_recv = send_recv
 
     def undo():
         dist.all_reduce = saved[0]
-        C._all_gather_base, C._reduce_scatter_base = saved[1:]
+        C._all_gather_base, C._reduce_scatter_base, C._send_recv = saved[1:]
     return undo
 
 
@@ -145,9 +158,11 @@ def test_recorder_counts_what_rank_0_issues(tmp_path):
     for name in CELLS:
         assert recorded[name] == issued[name], (name, recorded[name],
                                                 issued[name])
-    # the decode merges partial softmaxes and samples across the vocab
-    # shards (all-reduces) over gathered weights (all-gathers); the train
-    # step's backward reduce-scatters its gathers
+    # the decode gathers q, k, v heads over "model" (all-gathers), merges
+    # partial softmaxes, sums row-parallel outputs and samples across the
+    # vocab shards (all-reduces); the train step gathers and
+    # reduce-scatters the sequence-sharded residual and its FSDP weights,
+    # and fetches the kv head split between the model ranks point to point
     assert set(recorded["decode"]) == {"all-gather", "all-reduce"}
     assert set(recorded["train"]) == {"all-gather", "all-reduce",
-                                      "reduce-scatter"}
+                                      "reduce-scatter", "collective-permute"}
