@@ -2714,6 +2714,236 @@ def _dist_seqpar(dev) -> dict:
             "ref_step_ms": ref_s / DIST_STEPS * 1e3}
 
 
+# tensor-parallel prefill and decode of the other families:
+# zamba2-1.2b and whisper-base W4A16 at their published widths and depths
+# on a 1 x 2 mesh, 8 rows of a 64-token prompt (whisper-base: and 8 clips
+# of its 1,500 frames), 16 decode steps.  Each runs with bf16 activations
+# (the deployment) and again with f32 activations over the same W4A16
+# weights, teacher-forced with the bf16 run's tokens.  In bf16 the logits
+# must lie within TP_BF16_RTOL of the one-rank logits' largest magnitude:
+# the hybrid's bf16 rule (``reference_ssm_check``); the one-rank bf16
+# logits' distance from the one-rank f32 ones is reported beside it (the
+# model's own bf16 rounding, which a bf16 flip's gap may reach past
+# SPEC_GAP).  In f32 the logits within TP_F32_RTOL of it, and a greedy
+# token may differ only where the one-rank top-2 gap is at most SPEC_GAP
+DIST_TP_ARCHS = ("zamba2-1.2b", "whisper-base")
+DIST_TP_ROWS, DIST_TP_PROMPT, DIST_TP_MAX_LEN, DIST_TP_STEPS = 8, 64, 128, 16
+TP_BF16_RTOL = 0.1
+TP_F32_RTOL = 1e-4
+
+
+def tp_gemm_layout(cfg, m: int, part: str = "decoder") -> dict:
+    """{(K, N): launches} of K3 per rank in one forward of ``cfg`` on a
+    ``model`` axis of ``m`` (``models.tensor_parallel``): a column-parallel
+    projection at (K, N / m), a row-parallel one (o, ``out_proj``) at
+    (K / m, N), as ``gemm_layout`` lists them (FFN down is Q8, no K3).
+    ``part``: Whisper's "decoder" (a decode step, or a prefill's decoder:
+    self q, k, v, o, cross q, o and fc1 a layer) or "encoder" (a prefill's
+    encoder layers' q, k, v, o, fc1 and every decoder layer's cross k, v
+    of the encoder output)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim()
+    q, kv = (d, cfg.n_heads * hd // m), (d, cfg.n_kv_heads * hd // m)
+    o = (cfg.n_heads * hd // m, d)
+    if cfg.family == "encdec":
+        fc1 = (d, cfg.d_ff // m)
+        blocks = ([([q, kv, kv, o, fc1], cfg.n_encoder_layers),
+                   ([kv, kv], cfg.n_layers)] if part == "encoder" else
+                  [([q, kv, kv, o, q, o, fc1], cfg.n_layers)])
+    else:
+        s = cfg.ssm
+        di = s.d_inner(d)
+        n_in = 2 * di + 2 * s.ngroups * s.d_state + s.n_heads(d)
+        apps = cfg.n_layers // cfg.hybrid_attn_every \
+            if cfg.hybrid_attn_every else 0
+        blocks = [([(d, n_in // m), (di // m, d)], cfg.n_layers),
+                  ([q, kv, kv, o, (d, cfg.d_ff // m), (d, cfg.d_ff // m)],
+                   apps)]
+    out: dict = {}
+    for shapes, times in blocks:
+        for kn in shapes:
+            out[kn] = out.get(kn, 0) + times
+    return {kn: n for kn, n in out.items() if n}
+
+
+def _dist_tp_family(dev, arch: str) -> dict:
+    """Tensor-parallel prefill and decode of ``arch`` (zamba2-1.2b or
+    whisper-base) W4A16 on a (1, 2) mesh, with bf16 activations and then
+    f32 ones over the same weights (``_dist_tp_run``).  Returns the bf16
+    run's record with the f32 run's under "f32"."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import api
+    from repro_torch.quant.qlinear import quantize_model_params
+
+    cfg = get_config(arch)
+    qparams = quantize_model_params(api.get_model(cfg).init_params(
+        cfg, seed=0, device=dev))
+    torch.cuda.empty_cache()
+    out, toks, lg = _dist_tp_run(dev, cfg, qparams)
+    out["f32"], _, lg32 = _dist_tp_run(dev, cfg.with_(dtype="float32"),
+                                       qparams, toks)
+    out["one_rank_bf16_vs_f32"] = max(float((a.float() - b).abs().max())
+                                      for a, b in zip(lg, lg32))
+    return out
+
+
+def _dist_tp_run(dev, cfg, qparams, forced=None):
+    """One run of ``_dist_tp_family`` in ``cfg.dtype``: each rank holds its
+    ``model`` blocks of the weights (``in_proj`` columns, ``out_proj``
+    rows, the heads' vectors and ``conv`` channels; the attention and MLP
+    columns and rows; the vocab where it divides), prefills the 8 rows
+    into its part of the cache (``tp_mamba2`` / ``tp_whisper``), then
+    takes 16 teacher-forced steps over its cache blocks (zamba2's
+    attention cache split along the sequence,
+    ``tp_mamba2.decode_cache``).  Each rank first runs the one-rank
+    prefill and greedy decode on the whole weights, the reference: the
+    rank's vocab block of the logits must lie within TP_BF16_RTOL (bf16)
+    or TP_F32_RTOL (f32) of the reference's largest magnitude, and in f32
+    a greedy token may differ only where the reference's top-2 gap is at
+    most SPEC_GAP.  K3 launches exactly ``tp_gemm_layout`` a forward, at
+    the shard shapes; the collectives the rank issues equal the same
+    program's run as this rank on ``meta`` under an ``AbstractMesh``.
+    ``forced``: the tokens of every step (else the reference's greedy
+    ones).  Returns (record, the tokens, the reference's logits)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import (AbstractMesh,
+                                                  ParallelContext)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.models import tensor_parallel as TP
+    from repro_torch.quant.qlinear import cast_params
+    from repro_torch.serving.sampler import SamplerConfig
+    from repro_torch.train.loop import local_view, shard_params
+
+    model = api.get_model(cfg)
+    dtype = getattr(torch, cfg.dtype)
+    params = cast_params(qparams, dtype)
+    gen = torch.Generator().manual_seed(11)
+    R, P, ML = DIST_TP_ROWS, DIST_TP_PROMPT, DIST_TP_MAX_LEN
+    prompts = torch.randint(3, cfg.vocab_size, (R, P), generator=gen).to(dev)
+    lens = torch.full((R,), P, dtype=torch.int32, device=dev)
+    kw = {}
+    if cfg.family == "encdec":
+        kw["embeddings"] = torch.randn(
+            (R, cfg.encoder_seq_len, cfg.d_model), generator=gen).to(
+                dev, dtype)
+    with torch.no_grad():
+        cache = model.init_cache(cfg, R, ML, device=dev)
+        first = model.prefill(params, prompts, cfg, lengths=lens, cache=cache,
+                              **kw)
+        tok, ref_tok, ref_lg = torch.argmax(first, -1), [], [first]
+        for i in range(DIST_TP_STEPS):
+            if forced is not None:
+                tok = forced[i]
+            lg = model.decode_step(params, tok[:, None].int(), cache,
+                                   lens + i + 1, cfg)
+            ref_tok.append(tok)
+            ref_lg.append(lg)
+            tok = torch.argmax(lg, -1)
+        del cache
+    par = ParallelContext(mesh=make_host_mesh(1, 2, device_type="cpu"),
+                          fsdp=False)
+    blocks, specs = shard_params(params, par)
+    del params
+    torch.cuda.empty_cache()
+    fam = TP.family(cfg)
+    hybrid = cfg.family == "hybrid"
+
+    def program(view, par, inputs, cache, toks, lens):
+        """The prefill, then the steps: every call's logits."""
+        emb = {"embeddings": kw["embeddings"].to(inputs.device)} if kw \
+            else {}
+        out = [fam.prefill(view, inputs, cfg, TP.TPLayout(par), lengths=lens,
+                           cache=cache, **emb)]
+        dpar = dataclasses.replace(par, kv_seq_axis="model") if hybrid \
+            else par
+        dtp = TP.TPLayout(dpar)
+        if hybrid:
+            cache = fam.decode_cache(cache, cfg, dtp, ML, P)
+        for i, t in enumerate(toks):
+            out.append(fam.decode_step(view, t[:, None].int(), cache,
+                                       lens + i + 1, cfg, dtp))
+        return out
+
+    with torch.no_grad():
+        cache = fam.init_cache(cfg, TP.TPLayout(par), R,
+                               P if hybrid else ML, device=dev)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with C.record_collectives() as rec:
+            tp_lg = program(local_view(blocks, specs, par), par, prompts,
+                            cache, ref_tok, lens)
+        torch.cuda.synchronize()
+        tp_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        shapes = ops.gemm_launches_by_shape()
+        greedy = SamplerConfig(greedy=True)
+        tp_tok = [TP.sample(lg.float(), 0, greedy, cfg, TP.TPLayout(par))
+                  for lg in tp_lg]
+        # the same program as this rank's on meta: the dry-run's count
+        r = C.axis_index("model", par.mesh)
+        apar = dataclasses.replace(par, mesh=AbstractMesh(
+            (1, 2), ("data", "model"), coordinate=(0, r)))
+        meta = T.map_with_path(lambda _, t: t.to("meta"), blocks)
+        mcache = fam.init_cache(cfg, TP.TPLayout(apar), R,
+                                P if hybrid else ML, device="meta")
+        with C.record_collectives() as mrec:
+            program(local_view(meta, specs, apar), apar, prompts.to("meta"),
+                    mcache, [t.to("meta") for t in ref_tok], lens.to("meta"))
+    V = tp_lg[0].shape[-1]
+    max_diff, top, flips, worst_gap = 0.0, 0.0, 0, 0.0
+    for a, b, t in zip(tp_lg, ref_lg, tp_tok):
+        b = b.float()
+        ref = b[:, r * V:(r + 1) * V] if V != cfg.vocab_size else b
+        max_diff = max(max_diff, float((a.float() - ref).abs().max()))
+        top = max(top, float(b.abs().max()))
+        top2 = torch.topk(b, 2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        differ = t.long() != torch.argmax(b, -1)
+        if bool(differ.any()):
+            flips += int(differ.sum())
+            worst_gap = max(worst_gap, float(gap[differ].max()))
+    want: dict = {}
+    parts = [(R * P, "decoder")] + ([(R * cfg.encoder_seq_len, "encoder")]
+                                    if cfg.family == "encdec" else [])
+    for M, part in parts:
+        for (K, N), n in tp_gemm_layout(cfg, 2, part).items():
+            want[M, K, N] = want.get((M, K, N), 0) + n
+    for (K, N), n in tp_gemm_layout(cfg, 2).items():
+        want[R, K, N] = want.get((R, K, N), 0) + n * DIST_TP_STEPS
+    name = f"dist/tp_{cfg.name.split('-')[0]} ({cfg.dtype})"
+    rtol = TP_F32_RTOL if cfg.dtype == "float32" else TP_BF16_RTOL
+    if shapes != want or any(n for k, n in counts.items()
+                             if k != "lut_dequant_gemm"):
+        raise AssertionError(f"{name}: launches {counts} {shapes}, want "
+                             f"{want} and nothing else")
+    if max_diff > rtol * top or (cfg.dtype == "float32" and
+                                 worst_gap > SPEC_GAP):
+        raise AssertionError(f"{name}: logits {max_diff} apart (largest "
+                             f"{top}, tolerance {rtol} of it), a token "
+                             f"differs where the top-2 gap is {worst_gap}")
+    return {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+            "rows": R, "mesh": "1x2", "prompt": P, "max_len": ML,
+            "steps": DIST_TP_STEPS,
+            "frames": cfg.encoder_seq_len if cfg.family == "encdec" else 0,
+            "max_logit_diff": max_diff, "largest_logit": top,
+            "logit_rtol": rtol, "token_flips": flips,
+            "worst_flip_gap": worst_gap,
+            "k3_per_step": sum(tp_gemm_layout(cfg, 2).values()),
+            "k3_launches": counts["lut_dequant_gemm"], "counts": counts,
+            "shapes": [[list(k), n] for k, n in shapes.items()],
+            "collectives": rec, "collectives_meta": mrec,
+            "wall_s": tp_s}, ref_tok, [t.float() for t in ref_lg]
+
+
 def _dist_sample(dev) -> dict:
     """``distributed_sample`` over qwen2.5-1.5b's 151,936-wide vocab on a
     (1, 2) mesh: greedy equals ``argmax``, the tie rows included (the
@@ -2964,6 +3194,9 @@ def dist_worker(out_dir: str) -> int:
                      ("compression", _dist_compression)):
         res[name] = fn(dev)
         torch.cuda.empty_cache()
+    for arch in DIST_TP_ARCHS:
+        res[f"tp_{arch.split('-')[0]}"] = _dist_tp_family(dev, arch)
+        torch.cuda.empty_cache()
     with open(Path(out_dir) / "layers.txt") as f:
         n_layers = int(f.read())
     res["elastic"] = _dist_elastic(dev, out_dir, n_layers)
@@ -2992,8 +3225,13 @@ def dist_phase(dev: str = "cuda", train_layers: int = 0) -> dict:
        sharded branch, ``compressed_psum`` and the elastic restore of the
        2 x 2 checkpoint, held against the digests its ranks printed of
        their trained state (``_dist_*``).
-    Returns the sequence-parallel run's {"counts", "shapes", ...} (rank
-    0's; every rank's K3 count is checked)."""
+       The group also runs zamba2-1.2b and whisper-base tensor parallel
+       on 1 x 2 (``_dist_tp_family``: prefill and 16 steps against one
+       rank, each rank's K3 at the shard shapes and its collectives
+       against this rank's program on ``meta``).
+    Returns {path: {"counts", "shapes", ...}} of "dist/seqpar",
+    "dist/tp_zamba2" and "dist/tp_whisper" (rank 0's; every rank's K3
+    count is checked)."""
     import shutil
     import tempfile
 
@@ -3049,11 +3287,15 @@ def dist_phase(dev: str = "cuda", train_layers: int = 0) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     sp = [r["seqpar"] for r in ranks]
-    for r, x in enumerate(sp):
-        if x["collectives"] != x["collectives_meta"]:
-            raise AssertionError(f"dist/seqpar: rank {r} issued "
-                                 f"{x['collectives']}, the dry-run counts "
-                                 f"{x['collectives_meta']}")
+    tps = {f"tp_{a.split('-')[0]}": [r[f"tp_{a.split('-')[0]}"]
+                                     for r in ranks] for a in DIST_TP_ARCHS}
+    for name, xs in [("seqpar", sp)] + list(tps.items()) + [
+            (f"{k} (float32)", [x["f32"] for x in v]) for k, v in tps.items()]:
+        for r, x in enumerate(xs):
+            if x["collectives"] != x["collectives_meta"]:
+                raise AssertionError(f"dist/{name}: rank {r} issued "
+                                     f"{x['collectives']}, the dry-run "
+                                     f"counts {x['collectives_meta']}")
     emit("dist", backend="gloo", ranks_share="cuda:0",
          train={"mesh": DIST_MESH, "layers": n_layers,
                 "args": DIST_TRAIN_ARGS, "losses": losses,
@@ -3076,10 +3318,26 @@ def dist_phase(dev: str = "cuda", train_layers: int = 0) -> dict:
          elastic=[r["elastic"] for r in ranks],
          worker_peak_bytes=[r["peak_device_bytes"] for r in ranks],
          worker_wall_s=worker_s)
-    cfg_kv = sp[0]
-    return {"counts": cfg_kv["counts"],
-            "shapes": {tuple(k): n for k, n in cfg_kv["shapes"]},
-            "kv_shapes": {}, "kv_geom": (2, 128)}
+    for name, xs in tps.items():
+        emit(f"dist_{name}", backend="gloo", ranks_share="cuda:0",
+             **{k: v for k, v in xs[0].items()
+                if k not in ("counts", "shapes", "collectives",
+                             "collectives_meta", "f32")},
+             f32={k: v for k, v in xs[0]["f32"].items()
+                  if k not in ("counts", "shapes", "collectives_meta")},
+             f32_max_logit_diff_per_rank=[x["f32"]["max_logit_diff"]
+                                          for x in xs],
+             k3_per_rank=[x["k3_launches"] for x in xs],
+             shapes_per_rank=[x["shapes"] for x in xs],
+             collectives_per_rank=[x["collectives"] for x in xs],
+             collectives_meta_per_rank=[x["collectives_meta"] for x in xs],
+             max_logit_diff_per_rank=[x["max_logit_diff"] for x in xs],
+             wall_s_per_rank=[x["wall_s"] for x in xs])
+    return {f"dist/{name}": {"counts": xs[0]["counts"],
+                             "shapes": {tuple(k): n for k, n in
+                                        xs[0]["shapes"]},
+                             "kv_shapes": {}, "kv_geom": (2, 128)}
+            for name, xs in [("seqpar", sp)] + list(tps.items())}
 
 
 # ---------------------------------------------------------------------------
@@ -3725,7 +3983,7 @@ def main() -> int:
     runs["long"] = long_phase()
     runs["encdec/whisper"] = whisper_run()
     runs["train/serve-ckpt"] = train_phase()
-    runs["dist/seqpar"] = dist_phase(train_layers=DIST_TRAIN_LAYERS)
+    runs.update(dist_phase(train_layers=DIST_TRAIN_LAYERS))
     observe_runs()
     # K3 and K4 at the shapes the serve runs launched them with: K3's M on
     # the north-star path (8 decode slots, a Best-of-N group's padded
@@ -3740,8 +3998,9 @@ def main() -> int:
     gemm_mkn, kv_r = {}, {}
     for path in ("q8/exact", "q8/prefix", "q4/prefix", "sc/direct",
                  "beam/sched", "beam/direct") + SPEC_PATHS + MOE_PATHS + \
-            ("q4/stablelm",) + DENSE_PATHS + ("encdec/whisper", "long",
-                                              "dist/seqpar"):
+            ("q4/stablelm",) + DENSE_PATHS + (
+                "encdec/whisper", "long", "dist/seqpar", "dist/tp_zamba2",
+                "dist/tp_whisper"):
         for mkn in runs[path]["shapes"]:
             gemm_mkn.setdefault(mkn, path)
         for mode, r in runs[path]["kv_shapes"]:

@@ -13,16 +13,19 @@ The cells, their parallel settings and their specs are the JAX
 package's (``repro.configs.inputs``).  What runs under them is the port's
 own layout: a cell's arguments (``Cell.args``) are ``meta`` tensors of
 rank 0's blocks of the global inputs (``sharding.local_shape``), and its
-function is rank 0's program over them.  The transformer family runs on
-its per-device layout (``models.tensor_parallel``): weights read as
-their ``model`` blocks (``train.loop.local_view``), rows kept on their
-``data`` shard, activations moved instead; a prefill keeps the kv heads
-each rank read (``tensor_parallel.kv_heads_read``), a decode step samples
-from the rank's vocab block.  The other families read every leaf through
-the gathered view (``train.loop.gathered_view``), and their decode steps
-take the rows and every cache leaf outside the sequence-parallel ones
-whole.  So a cell's argument bytes are a JAX device's, and its temp and
-collective bytes are the port's.
+function is rank 0's program over them.  Under tensor parallelism every
+family runs on its per-device layout (``models.tensor_parallel`` and
+its family modules ``tp_mamba2``, ``tp_whisper``): weights read as their
+``model`` blocks (``train.loop.local_view``), rows kept on their
+``data`` shard, cache leaves on the blocks ``cache_specs`` gives them,
+activations moved instead; a prefill keeps the rank's part of the cache
+(the kv heads it read, its conv channels and SSM heads, its head or
+head_dim block of Whisper's K/V), a decode step samples from the rank's
+vocab block.  The ``fsdp`` layout (``par.tp`` False) reads every leaf
+through the gathered view (``train.loop.gathered_view``), and its decode
+steps take the rows and every cache leaf outside the sequence-parallel
+ones whole.  So a cell's argument bytes are a JAX device's, and its temp
+and collective bytes are the port's.
 """
 from __future__ import annotations
 
@@ -228,7 +231,8 @@ def build_cell(arch: str, shape: InputShape, par: ParallelContext,
     if shape.kind == "decode" and cfg.family != "encdec":
         # flash-decoding: KV seq over "model" for batched decode (batch
         # occupies the data axis); over "data" for batch-1 long context.
-        # (whisper's decoder keeps the head/head_dim sharding path.)
+        # (whisper's decoder computes on its cache's head or head_dim
+        # blocks instead: models.tp_whisper)
         axis = "data" if shape.name == "long_500k" else "model"
         cfg = cfg.with_(kv_partition="sequence")
         par = dataclasses.replace(par, kv_seq_axis=axis)
@@ -290,18 +294,16 @@ def build_cell(arch: str, shape: InputShape, par: ParallelContext,
     row_axes = specs["tokens"].spec[0]
     tp = TP.TPLayout(par, rows=row_axes) if TP.applies(cfg, par) else None
 
-    if shape.kind == "prefill" and tp is not None:
-        lo, hi = TP.kv_heads_read(cfg, tp.m, tp.r)
+    fam = TP.family(cfg)
+    t_enc = {"t_enc": cfg.encoder_seq_len} if cfg.family == "encdec" else {}
 
+    if shape.kind == "prefill" and tp is not None:
         def tp_prefill_fn(params, tokens, lengths, embeddings=None):
-            shape = (cfg.n_layers, tokens.shape[0], S, hi - lo,
-                     cfg.resolved_head_dim())
-            dtype = getattr(torch, cfg.dtype)
-            cache = {n: torch.zeros(shape, dtype=dtype, device=tokens.device)
-                     for n in ("k", "v")}
-            logits = TP.prefill(local_view(params, pspecs, par), tokens, cfg,
-                                tp, lengths=lengths, cache=cache,
-                                embeddings=embeddings)
+            cache = fam.init_cache(cfg, tp, tokens.shape[0], S,
+                                   device=tokens.device, **t_enc)
+            logits = fam.prefill(local_view(params, pspecs, par), tokens, cfg,
+                                 tp, lengths=lengths, cache=cache,
+                                 embeddings=embeddings)
             return logits, cache
 
         keys = ["tokens", "lengths"] + (["embeddings"] if "embeddings" in
@@ -312,9 +314,6 @@ def build_cell(arch: str, shape: InputShape, par: ParallelContext,
                     (aparams, *(globals_[k] for k in keys)))
 
     if shape.kind == "prefill":
-        t_enc = {"t_enc": cfg.encoder_seq_len} if cfg.family == "encdec" \
-            else {}
-
         def prefill_fn(params, tokens, lengths, embeddings=None):
             kw = {"embeddings": embeddings} if embeddings is not None else {}
             if cfg.family == "transformer":
@@ -350,7 +349,7 @@ def build_cell(arch: str, shape: InputShape, par: ParallelContext,
     if tp is not None:
         def tp_serve_fn(params, cache, tokens, cache_len, seed):
             view = local_view(params, pspecs, par)
-            logits = TP.decode_step(view, tokens, cache, cache_len, cfg, tp)
+            logits = fam.decode_step(view, tokens, cache, cache_len, cfg, tp)
             return TP.sample(logits.float(), seed, sc, cfg, tp), cache
 
         return Cell(name, "decode", tp_serve_fn,

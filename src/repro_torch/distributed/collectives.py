@@ -22,7 +22,8 @@ two ranks on a device) talk; it measures nothing about NVLink.
 Under a :class:`~repro_torch.distributed.sharding.AbstractMesh` (the
 dry-run) nothing is performed: each primitive takes ``meta`` tensors
 (anything else raises), returns an empty ``meta`` tensor of its result's
-shape and dtype as rank 0 would get it, and adds (1, the result's bytes)
+shape and dtype as the mesh's rank (rank 0 unless its ``coordinate``
+names another) would get it, and adds (1, the result's bytes)
 to the recorder that :func:`record_collectives` installs, under the
 names XLA's HLO gives the primitive (``psum`` / ``pmax`` / ``pmin`` ->
 ``all-reduce``, ``all_gather`` -> ``all-gather``, ``psum_scatter`` ->
@@ -35,6 +36,8 @@ from __future__ import annotations
 
 import contextlib
 import math
+import numbers
+
 import torch
 import torch.distributed as dist
 
@@ -99,12 +102,11 @@ def _abstract(x: torch.Tensor, mesh) -> bool:
 
 
 def axis_index(axis, mesh) -> int:
-    """This rank's index along ``axis`` (row-major over a tuple); rank
-    0's under an AbstractMesh."""
-    if is_abstract(mesh):
-        return 0
+    """This rank's index along ``axis`` (row-major over a tuple); under an
+    AbstractMesh that of its ``coordinate`` (rank 0's unless given)."""
     shape = mesh_shape(mesh)
-    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    coord = dict(zip(mesh.mesh_dim_names, mesh.coordinate if
+                     is_abstract(mesh) else mesh.get_coordinate()))
     idx = 0
     for a in axes_of(axis):
         idx = idx * shape[a] + coord[a]
@@ -315,47 +317,94 @@ def _send_recv(sends, recvs, axis, mesh):
             for o, (*_, d) in zip(outs, recvs)]
 
 
-def _pieces(have, want, me: int, n: int):
-    """The overlaps [lo, hi) of ``want[me]`` with each rank's ``have``
-    (what ``me`` receives, by source) and of each rank's ``want`` with
-    ``have[me]`` (what it sends, by destination)."""
-    def cut(a, b):
-        lo, hi = max(a[0], b[0]), min(a[1], b[1])
-        return (lo, hi) if hi > lo else None
+def _ranges(entry) -> tuple:
+    """A rank's ranges of a regrouped dim, in the order its tensor holds
+    them: one [a, b) given as (a, b), or a tuple of such pairs."""
+    if len(entry) == 2 and all(isinstance(v, numbers.Integral)
+                               for v in entry):
+        return ((int(entry[0]), int(entry[1])),)
+    return tuple((int(a), int(b)) for a, b in entry)
 
-    got = [(t, c) for t in range(n) if (c := cut(want[me], have[t]))]
-    give = [(s, c) for s in range(n) if s != me
-            and (c := cut(want[s], have[me]))]
+
+def _local(ranges: tuple, lo: int) -> int:
+    """Where global index ``lo`` sits in the concatenation of ``ranges``."""
+    pos = 0
+    for a, b in ranges:
+        if a <= lo < b:
+            return pos + lo - a
+        pos += b - a
+    raise ValueError(f"index {lo} is outside {ranges}")
+
+
+def _pieces(have, want, me: int, n: int):
+    """What ``me`` receives, [(source, lo, hi)] in the order of its output
+    (its ``want`` ranges in turn, each one's pieces by lo), and what it
+    sends, {destination: [(lo, hi)]} in the order that rank receives them
+    from ``me``.  Each rank's ``have`` ranges are disjoint from the
+    others'."""
+    def cut(w, t):
+        out = []
+        for a, b in have[t]:
+            lo, hi = max(w[0], a), min(w[1], b)
+            if hi > lo:
+                out.append((lo, hi))
+        return sorted(out)
+
+    got = []
+    for w in want[me]:
+        got += sorted(((t, lo, hi) for t in range(n) for lo, hi in cut(w, t)),
+                      key=lambda p: p[1])
+    give = {}
+    for s in range(n):
+        pcs = [c for w in want[s] for c in cut(w, me)] if s != me else []
+        if pcs:
+            give[s] = pcs
     return got, give
+
+
+def _exchange(pieces, recvs, abstract: bool, axis, mesh, dim):
+    """One message per peer: ``pieces`` {peer: [tensor, ...]} sent
+    concatenated along ``dim``; the received tensors in ``recvs``' order
+    (under an AbstractMesh empty ``meta`` tensors, nothing sent)."""
+    if abstract:
+        return [torch.empty(s, dtype=d, device="meta")
+                for _, s, d, _ in recvs]
+    sends = [(p, ts[0] if len(ts) == 1 else torch.cat(ts, dim=dim))
+             for p, ts in pieces.items()]
+    if recvs or sends:
+        return _send_recv(sends, recvs, axis, mesh)
+    return []
 
 
 def _regroup(x, have, want, axis, mesh, dim):
     n = axis_size(axis, mesh)
     me = axis_index(axis, mesh)
     got, give = _pieces(have, want, me, n)
-    h0 = have[me][0]
+    hv = have[me]
 
     def part(lo, hi):
-        return x.narrow(dim, lo - h0, hi - lo)
+        return x.narrow(dim, _local(hv, lo), hi - lo)
 
+    lens: dict = {}
+    for t, lo, hi in got:
+        if t != me:
+            lens[t] = lens.get(t, 0) + hi - lo
     shape = list(x.shape)
     recvs = []
-    for t, (lo, hi) in got:
-        if t != me:
-            shape[dim] = hi - lo
-            recvs.append((t, tuple(shape), x.dtype, x.device))
-    if _abstract(x, mesh):
-        received = [torch.empty(s, dtype=d, device="meta")
-                    for _, s, d, _ in recvs]
-    elif recvs or give:
-        received = _send_recv([(s, part(lo, hi)) for s, (lo, hi) in give],
-                              recvs, axis, mesh)
-    else:
-        received = []
-    it = iter(received)
-    out = torch.cat([part(lo, hi) if t == me else next(it)
-                     for t, (lo, hi) in got], dim=dim) if got else \
-        x.new_empty(shape[:dim] + [0] + shape[dim + 1:])
+    for t, k in lens.items():
+        shape[dim] = k
+        recvs.append((t, tuple(shape), x.dtype, x.device))
+    abstract = _abstract(x, mesh)
+    received = _exchange({} if abstract else {
+        s: [part(lo, hi) for lo, hi in pcs] for s, pcs in give.items()},
+        recvs, abstract, axis, mesh, dim)
+    chunks = {t: list(r.split([hi - lo for s, lo, hi in got if s == t],
+                              dim=dim))
+              for (t, *_), r in zip(recvs, received)}
+    shape[dim] = 0
+    out = torch.cat([part(lo, hi) if t == me else chunks[t].pop(0)
+                     for t, lo, hi in got], dim=dim) if got else \
+        x.new_empty(shape)
     nbytes = sum(r.numel() * r.element_size() for r in received)
     if received or give:
         _record("collective-permute", out, nbytes, axis=axis, operand=x)
@@ -368,34 +417,30 @@ def _unregroup(g, x_shape, have, want, axis, mesh, dim):
     n = axis_size(axis, mesh)
     me = axis_index(axis, mesh)
     got, give = _pieces(have, want, me, n)
-    w0, h0 = want[me][0], have[me][0]
+    hv = have[me]
     gx = g.new_zeros(x_shape)
-    sends, own = [], None
-    for t, (lo, hi) in got:
-        piece = g.narrow(dim, lo - w0, hi - lo)
+    own, back, pos = [], {}, 0
+    for t, lo, hi in got:
+        piece = g.narrow(dim, pos, hi - lo)
+        pos += hi - lo
         if t == me:
-            own = (lo, piece)
+            own.append((lo, piece))
         else:
-            sends.append((t, piece))
+            back.setdefault(t, []).append(piece)
     shape = list(x_shape)
     recvs = []
-    for s, (lo, hi) in give:
-        shape[dim] = hi - lo
+    for s, pcs in give.items():
+        shape[dim] = sum(hi - lo for lo, hi in pcs)
         recvs.append((s, tuple(shape), g.dtype, g.device))
-    if _abstract(g, mesh):
-        received = [torch.empty(sh, dtype=d, device="meta")
-                    for _, sh, d, _ in recvs]
-    elif recvs or sends:
-        received = _send_recv(sends, recvs, axis, mesh)
-    else:
-        received = []
-    if own is not None:
-        lo, piece = own
-        gx.narrow(dim, lo - h0, piece.shape[dim]).add_(piece)
-    for (s, (lo, hi)), r in zip(give, received):
-        gx.narrow(dim, lo - h0, hi - lo).add_(r)
+    received = _exchange(back, recvs, _abstract(g, mesh), axis, mesh, dim)
+    for lo, piece in own:
+        gx.narrow(dim, _local(hv, lo), piece.shape[dim]).add_(piece)
+    for (s, pcs), r in zip(give.items(), received):
+        for (lo, hi), piece in zip(pcs, r.split([hi - lo for lo, hi in pcs],
+                                                dim=dim)):
+            gx.narrow(dim, _local(hv, lo), hi - lo).add_(piece)
     nbytes = sum(r.numel() * r.element_size() for r in received)
-    if received or sends:
+    if received or back:
         _record("collective-permute", gx, nbytes, axis=axis, operand=g)
     return gx
 
@@ -414,14 +459,25 @@ class _Regroup(torch.autograd.Function):
 def regroup(x: torch.Tensor, have, want, axis, mesh, *,
             dim: int = -1) -> torch.Tensor:
     """Move pieces of a dim split over ``axis`` between its ranks: rank
-    i holds global indices ``have[i]`` = [a, b) of dim ``dim`` (``x``) and
-    gets ``want[i]`` = [a', b'), each piece from the ranks that hold it,
-    point to point (XLA's ``collective-permute``; recorded with the bytes
-    the rank receives).  Ranges may be empty or overlap between ranks.
-    Differentiable: the backward returns each piece's grad to its source,
-    summed over the ranks that took it."""
+    i holds global indices ``have[i]`` of dim ``dim`` (``x``) and gets
+    ``want[i]``, each piece from the ranks that hold it, point to point
+    (XLA's ``collective-permute``; one message per pair of ranks,
+    recorded with the bytes the rank receives).  An entry is one range
+    (a, b) or a tuple of ranges, held and returned concatenated in that
+    order (a strided set of columns, such as dims [4r, 4r + 4) of every
+    head).  ``want`` ranges may be empty or overlap between ranks;
+    ``have`` ranges are disjoint between ranks.  Differentiable: the
+    backward returns each piece's grad to its source, summed over the
+    ranks that took it."""
     dim = dim % x.dim()
+    have = tuple(_ranges(h) for h in have)
+    want = tuple(_ranges(w) for w in want)
     if axis_size(axis, mesh) == 1:
-        return x.narrow(dim, want[0][0] - have[0][0],
-                        want[0][1] - want[0][0])
-    return _Regroup.apply(x, tuple(have), tuple(want), axis, mesh, dim)
+        parts = [x.narrow(dim, _local(have[0], a), b - a)
+                 for a, b in want[0] if b > a]
+        if len(parts) == 1:
+            return parts[0]
+        shape = list(x.shape)
+        shape[dim] = 0
+        return torch.cat(parts, dim=dim) if parts else x.new_empty(shape)
+    return _Regroup.apply(x, have, want, axis, mesh, dim)

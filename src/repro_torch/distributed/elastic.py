@@ -25,12 +25,14 @@ def remesh(tree, new_par: ParallelContext, *, stacked_prefixes=("layers",)):
 
 
 def elastic_restore(checkpointer, abstract_tree, new_par: ParallelContext,
-                    step: Optional[int] = None, *, device=None):
+                    step: Optional[int] = None, *, device=None,
+                    stacked_prefixes=("layers",)):
     """Restore a checkpoint written under any previous mesh onto
     ``new_par``: each rank reads the global arrays and keeps its block
-    of ``param_specs(abstract_tree, new_par)``.  ``abstract_tree``: the
-    global tree in the JAX layout (``meta`` tensors will do); ``device``
-    as ``Checkpointer.restore``'s.  Returns (tree, step)."""
+    of ``param_specs(abstract_tree, new_par, stacked_prefixes=)``.
+    ``abstract_tree``: the global tree in the JAX layout (``meta`` tensors
+    will do); ``device`` as ``Checkpointer.restore``'s.  Returns (tree,
+    step)."""
     if new_par.mesh is None:
         return checkpointer.restore(abstract_tree, step=step, device=device)
     flat: dict = {}
@@ -42,7 +44,8 @@ def elastic_restore(checkpointer, abstract_tree, new_par: ParallelContext,
         else:
             flat[path] = node
 
-    walk(param_specs(abstract_tree, new_par), "")
+    walk(param_specs(abstract_tree, new_par,
+                     stacked_prefixes=stacked_prefixes), "")
     return checkpointer.restore(
         abstract_tree, step=step, device=device,
         take=lambda path, t: shard_of(t, flat[path], new_par).clone())

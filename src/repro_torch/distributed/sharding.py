@@ -55,13 +55,18 @@ class AbstractMesh:
     """A mesh's axis names and sizes with no process group behind it (the
     counterpart of ``jax.sharding.AbstractMesh``): enough for the sharding
     rules, block shapes and per-rank bytes, and for rank 0's program on
-    ``meta`` tensors, whose collectives are recorded, not performed."""
+    ``meta`` tensors, whose collectives are recorded, not performed
+    (another rank's with ``coordinate``, its index along each axis)."""
 
-    def __init__(self, shape: Tuple[int, ...], axis_names: Tuple[str, ...]):
+    def __init__(self, shape: Tuple[int, ...], axis_names: Tuple[str, ...],
+                 coordinate: Optional[Tuple[int, ...]] = None):
         if len(shape) != len(axis_names):
             raise ValueError(f"mesh shape {shape} vs axes {axis_names}")
         self.shape = tuple(int(s) for s in shape)
         self.mesh_dim_names = tuple(axis_names)
+        # whose program runs on it: rank 0's unless a coordinate is given
+        self.coordinate = tuple(coordinate) if coordinate is not None \
+            else (0,) * len(self.shape)
 
     def __repr__(self) -> str:
         return f"AbstractMesh({self.shape}, {self.mesh_dim_names})"
@@ -304,10 +309,10 @@ def stack_layers(params) -> dict:
 
 
 def coordinate(par: ParallelContext) -> dict:
-    """{axis: this rank's index along it}; rank 0's (all zeros) under an
-    :class:`AbstractMesh`."""
+    """{axis: this rank's index along it}; under an :class:`AbstractMesh`
+    its ``coordinate`` (rank 0's, all zeros, unless given)."""
     if is_abstract(par.mesh):
-        return {a: 0 for a in par.axes}
+        return dict(zip(par.axes, par.mesh.coordinate))
     return dict(zip(par.axes, par.mesh.get_coordinate()))
 
 

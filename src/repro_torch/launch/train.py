@@ -22,8 +22,8 @@ save.
 ``gloo`` for ranks that share one GPU) and a (data, model) mesh.  Every
 rank draws the same global batch and keeps its rows, so a step equals the
 single-device step; params and moments live as each rank's blocks
-(``train.loop.shard_params``).  The transformer family computes on its
-``model`` blocks with the residual sequence-sharded between layers
+(``train.loop.shard_params``).  Every family computes on its ``model``
+blocks with the residual sequence-sharded between layers
 (``models.tensor_parallel``; ``shard_activations_seq``).  Checkpoints hold the global arrays in the
 JAX format, written by rank 0, and restore onto any mesh
 (``distributed.elastic``); after the last save each rank prints the
@@ -51,8 +51,8 @@ from repro_torch.distributed.fault_tolerance import (PreemptionHandler,
                                                      resume_or_init)
 from repro_torch.distributed.sharding import param_specs, stack_layers
 from repro_torch.models import api
-from repro_torch.train.loop import (make_train_step, save_state,
-                                    shard_params, to_batch)
+from repro_torch.train.loop import (LAYER_STACKS, make_train_step,
+                                    save_state, shard_params, to_batch)
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 
 
@@ -145,12 +145,13 @@ def main(argv=None) -> dict:
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     if par is not None:
         abstract = stack_layers(api.abstract_params(cfg))
-        specs = param_specs(abstract, par)
+        specs = param_specs(abstract, par, stacked_prefixes=LAYER_STACKS)
         template = {"params": abstract, "opt": init_opt_state(abstract),
                     "step": torch.zeros((), dtype=torch.int32,
                                         device="meta")}
         if ckpt is not None and ckpt.latest_step() is not None:
-            state, step = elastic_restore(ckpt, template, par, device=device)
+            state, step = elastic_restore(ckpt, template, par, device=device,
+                                          stacked_prefixes=LAYER_STACKS)
             if rank == 0:
                 print(f"[ft] restored checkpoint at step {step}", flush=True)
         else:

@@ -20,6 +20,10 @@ place**: {"conv" (L, B, W - 1, conv_dim) in ``cfg.dtype``, "ssm" (L, B,
 H, P, N) f32[, "attn_k", "attn_v" (n_apps, B, max_len, Hkv, D)]}, batch
 on axis 1 of every leaf.  There is no paged layout: the recurrent state
 is per row, not per token.
+
+Under a mesh with a ``model`` axis the same layers run on each weight's
+and cache leaf's ``model`` block: ``models.tp_mamba2`` (``mamba_layer``,
+``mamba_decode_step``, ``forward``, ``prefill``, ``decode_step``).
 """
 from __future__ import annotations
 

@@ -1,20 +1,29 @@
-"""The transformer family on its per-device layout: compute that stays on
-the ``model`` shard of each weight (Megatron-style tensor parallelism),
-rows on their ``data`` (and ``pod``) shard.
+"""Every family on its per-device layout: compute that stays on the
+``model`` shard of each weight (Megatron-style tensor parallelism), rows
+on their ``data`` (and ``pod``) shard.
 
 What the JAX package's GSPMD arrives at from its sharding rules
 (``distributed/sharding.py``: heads, kv_heads, mlp and vocab on
-``model``) is written out here, one projection at a time, from the
-shape of the rank's block of each weight:
+``model``; Mamba2's ``in_proj`` columns, ``conv``, ``A_log`` /
+``dt_bias`` / ``D`` and ``out_proj`` rows on ``model``) is written out
+here, one projection at a time, from the shape of the rank's block of
+each weight.  This module holds the pieces every family calls and the
+transformer family (dense GQA, MoE, ``patch_stub``); ``tp_mamba2`` runs
+Mamba2 and the zamba2 hybrid and ``tp_whisper`` the encoder-decoder on
+them (:func:`family` picks the module):
 
-- a column-parallel projection (``wq``, ``wk``, ``wv``, ``gate``, ``up``)
-  gives the rank's columns; where they are a whole number of heads the
-  rank attends over those heads, else the activation is all-gathered
-  over ``model`` (the heads never divide: gemma3-1b's 4 of 256 on 16);
-- a row-parallel projection (``wo``, ``down``) takes the rank's columns
-  of its input and its partial output is summed over ``model``
-  (``psum``), or reduce-scattered along the sequence when the residual
-  is sequence-sharded (``shard_activations_seq``);
+- a column-parallel projection (``wq``, ``wk``, ``wv``, ``gate``, ``up``,
+  ``fc1``, ``in_proj``) gives the rank's columns, its bias block
+  included; where they are a whole number of heads the rank attends over
+  those heads, else each head goes to the rank of its first column,
+  which fetches the rest point to point (:func:`take`,
+  ``collectives.regroup``);
+- a row-parallel projection (``wo``, ``down``, ``fc2``, ``out_proj``)
+  takes the rank's columns of its input and its partial output is summed
+  over ``model`` (``psum``), or reduce-scattered along the sequence when
+  the residual is sequence-sharded (``shard_activations_seq``); a
+  replicated bias (``fc2/b``) is added once, after the sum
+  (:func:`row_parallel`);
 - the embedding looks up the ids of the rank's vocab block and sums the
   rows over ``model``; the LM head gives the rank's vocab block of the
   logits, which the loss and the sampler reduce without gathering;
@@ -29,9 +38,9 @@ gather over ``model``.  Activations move instead.
 With ``shard_activations_seq`` the residual between layers, which remat
 saves, is this rank's block of the sequence over ``model``: each
 column-parallel input is all-gathered along the sequence first and each
-row-parallel output reduce-scattered back, so a layer's forward issues
-two all-gathers and two reduce-scatters of (B, S, d).  Without it the
-residual is whole and a layer issues two ``psum``s.
+row-parallel output reduce-scattered back, so a transformer layer's
+forward issues two all-gathers and two reduce-scatters of (B, S, d).
+Without it the residual is whole and a layer issues two ``psum``s.
 
 Every collective's backward is its transpose (``collectives.py``), so
 the grads are those of the sum of every rank's loss; ``train.loop``
@@ -39,7 +48,7 @@ divides by the ranks that share each row.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import torch
@@ -75,14 +84,37 @@ class TPLayout:
     def seq(self) -> bool:
         return self.par.shard_activations_seq and self.m > 1
 
+    def whole_residual(self) -> "TPLayout":
+        """This layout with the residual whole (for a sequence that does
+        not split over ``model``, as Whisper's 1,500 frames on 16)."""
+        return TPLayout(replace(self.par, shard_activations_seq=False),
+                        self.rows)
+
+
+FAMILIES = ("transformer", "mamba2", "hybrid", "encdec")
+
 
 def applies(cfg: ModelConfig, par: Optional[ParallelContext]) -> bool:
     """Whether a program of ``cfg`` under ``par`` runs on this layout:
-    the transformer family (dense GQA, MoE, ``patch_stub``) under a mesh
-    with a ``model`` axis and tensor parallelism on.  The other families
-    read gathered weights (``train.loop.gathered_view``)."""
-    return (cfg.family == "transformer" and par is not None
+    every family (:data:`FAMILIES`) under a mesh with a ``model`` axis and
+    tensor parallelism on."""
+    return (cfg.family in FAMILIES and par is not None
             and par.mesh is not None and par.tp and "model" in par.axes)
+
+
+def family(cfg: ModelConfig):
+    """The module that runs ``cfg``'s family on this layout, with
+    ``forward``, ``prefill``, ``decode_step`` and ``init_cache``: this
+    one (the transformer family), ``tp_mamba2`` or ``tp_whisper``."""
+    import sys
+
+    if cfg.family in ("mamba2", "hybrid"):
+        from repro_torch.models import tp_mamba2
+        return tp_mamba2
+    if cfg.family == "encdec":
+        from repro_torch.models import tp_whisper
+        return tp_whisper
+    return sys.modules[__name__]
 
 
 # ---------------------------------------------------------------------------
@@ -94,6 +126,11 @@ def in_features(p: dict) -> int:
     """K of a linear layer's (K, N) weight: fp, or Q4 / Q8 codes (K, ...)."""
     w = p["w"]
     return (w["codes"] if isinstance(w, dict) else w).shape[-2]
+
+
+def blocks(n: int, m: int) -> list:
+    """[a, b) of each rank's block of a dim of ``n`` split ``m`` ways."""
+    return [(r * n // m, (r + 1) * n // m) for r in range(m)]
 
 
 def _sharded(n_local: int, n: int, tp: TPLayout) -> bool:
@@ -144,19 +181,44 @@ def _all_heads(y, H: int, hd: int, tp: TPLayout):
     return y.view(*y.shape[:-1], H, hd)
 
 
+def _cut(y, ranges, dim: int = -1):
+    """Indices ``ranges`` (a range (a, b) or a tuple of ranges) of dim
+    ``dim`` of y, concatenated in that order."""
+    dim = dim % y.dim()
+    parts = [y.narrow(dim, a, b - a) for a, b in C._ranges(ranges) if b > a]
+    if len(parts) == 1:
+        return parts[0]
+    if not parts:
+        shape = list(y.shape)
+        shape[dim] = 0
+        return y.new_empty(shape)
+    return torch.cat(parts, dim=dim)
+
+
+def take(y, n: int, want: list, tp: TPLayout, dim: int = -1):
+    """Indices ``want[r]`` (a range (a, b) or a tuple of ranges, see
+    ``collectives.regroup``) of dim ``dim`` of y on this rank, where y
+    holds the rank's block of a dim of global size ``n`` (the others'
+    pieces fetched point to point) or the whole dim (a slice)."""
+    dim = dim % y.dim()
+    if _sharded(y.shape[dim], n, tp):
+        have = blocks(n, tp.m)
+        if [C._ranges(w) for w in want] == [C._ranges(h) for h in have]:
+            return y
+        return C.regroup(y, have, want, "model", tp.mesh, dim=dim)
+    if C._ranges(want[tp.r]) == ((0, n),):
+        return y
+    return _cut(y, want[tp.r], dim)
+
+
 def _take_heads(y, H: int, hd: int, want: list, tp: TPLayout):
     """Columns ``want[r]`` (whole heads) of a column-parallel output y
     (B, S, n) on this rank: from its own columns, the others' fetched
     point to point where the rank holds a block (``collectives.regroup``);
     a slice where y is whole.  Returns (B, S, h, hd)."""
-    B, S, n = y.shape
+    B, S, _ = y.shape
     a, b = want[tp.r]
-    if _sharded(n, H * hd, tp):
-        have = [(r * n, (r + 1) * n) for r in range(tp.m)]
-        if want != have:
-            y = C.regroup(y, have, want, "model", tp.mesh, dim=2)
-        return y.view(B, S, (b - a) // hd, hd)
-    return y[..., a:b].reshape(B, S, (b - a) // hd, hd)
+    return take(y, H * hd, want, tp).view(B, S, (b - a) // hd, hd)
 
 
 def _reduce(y, sharded: bool, tp: TPLayout):
@@ -196,16 +258,51 @@ def _group(q, q0: int, k, v, lo: int, G: int):
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
-def attention(p: dict, h, cfg: ModelConfig, tp: TPLayout, *, positions,
-              window: int, aligned: bool):
-    """Causal self-attention of whole rows h (B, S, d) over the rank's
-    heads.  Returns (the row-parallel output (B, S, d), whether it is a
-    partial sum, (k, v) of the kv heads the rank read, (B, S, h, hd) with
-    rope).
+def row_parallel(p: dict, a, n: int, tp: TPLayout, *,
+                 sharded: Optional[bool] = None):
+    """A row-parallel projection: the rank's block of the rows of ``p``'s
+    weight (of ``n`` in all; or the whole weight) applied to the matching
+    columns of a, reduced to the residual's layout (:func:`_reduce`), and
+    the bias, which the rules replicate, added once after the sum.
+    ``sharded``: whether the weight is a block, if the caller knows."""
+    if sharded is None:
+        sharded = _sharded(in_features(p), n, tp)
+    y = _reduce(L.linear({"w": p["w"]}, a), sharded, tp)
+    return y + p["b"].to(y.dtype) if "b" in p else y
+
+
+def kv_heads(p: dict, x, cfg: ModelConfig, tp: TPLayout):
+    """(k, v) (B, T, hi - lo, hd) of the kv heads [lo, hi) this rank reads
+    (:func:`kv_heads_read`), projected from x (B, T, d) whole: the
+    rank's columns of ``wk`` / ``wv``, bias blocks included, the rest
+    fetched point to point."""
+    hd = cfg.resolved_head_dim()
+    kv_cols = [(a * hd, b * hd) for a, b in
+               (kv_heads_read(cfg, tp.m, r) for r in range(tp.m))]
+    return tuple(_take_heads(L.linear(p[w], x), cfg.n_kv_heads, hd, kv_cols,
+                             tp) for w in ("wk", "wv"))
+
+
+def attention(p: dict, h, cfg: ModelConfig, tp: TPLayout, **kw):
+    """:func:`_attention`'s output reduced to the residual's layout, the
+    ``wo`` bias (replicated) added once after the sum: (y, (k, v))."""
+    y, sharded, kv = _attention(p, h, cfg, tp, **kw)
+    y = _reduce(y, sharded, tp)
+    return (y + p["wo"]["b"].to(y.dtype) if "b" in p["wo"] else y), kv
+
+
+def _attention(p: dict, h, cfg: ModelConfig, tp: TPLayout, *, positions,
+               window: int, aligned: bool, causal: bool = True, cross=None):
+    """Self-attention of whole rows h (B, S, d) over the rank's heads
+    (causal unless ``causal`` is False), or with ``cross`` = (k, v) of the
+    kv heads the rank reads (:func:`kv_heads`, over an encoder's frames)
+    cross attention, with no rope and no mask.  Returns (the row-parallel
+    ``wo`` output before the sum and the bias, whether it is a partial
+    sum, (k, v) of the kv heads the rank read, (B, S, h, hd) with rope).
 
     Where the rank's block of a projection is whole heads it attends over
     its own; else over the heads whose first column it holds
-    (:func:`_owned_heads`), each one's columns fetched point to point from
+    (:func:`_q_plan`), each one's columns fetched point to point from
     the ranks that hold them, and the kv heads those read likewise.  The
     output's columns then go to the ranks whose block of ``wo`` takes
     them.  Only activations move."""
@@ -215,33 +312,38 @@ def attention(p: dict, h, cfg: ModelConfig, tp: TPLayout, *, positions,
     have, own = _q_plan(cfg, tp.m)
     sharded = _sharded(in_features(p["wo"]), Hq * hd, tp)
     assert sharded == (have[0] != (0, Hq * hd)), "wo's block vs the plan"
-    kv = [kv_heads_read(cfg, tp.m, r) for r in range(tp.m)]
-    kv_cols = [(a * hd, b * hd) for a, b in kv]
     q = _take_heads(L.linear(p["wq"], h), Hq, hd, own, tp)
-    k = _take_heads(L.linear(p["wk"], h), Hkv, hd, kv_cols, tp)
-    v = _take_heads(L.linear(p["wv"], h), Hkv, hd, kv_cols, tp)
-    if cfg.rope_theta:
-        q = L.rope(q, positions, cfg.rope_theta)
-        k = L.rope(k, positions, cfg.rope_theta)
+    if cross is None:
+        k, v = kv_heads(p, h, cfg, tp)
+        kv_pos = positions
+        if cfg.rope_theta:
+            q = L.rope(q, positions, cfg.rope_theta)
+            k = L.rope(k, positions, cfg.rope_theta)
+    else:
+        k, v = cross
+        B, T = k.shape[:2]
+        kv_pos = torch.arange(T, device=h.device)[None].expand(B, T)
     B, S = h.shape[:2]
     if q.shape[2]:
-        kk, vv = _group(q, own[tp.r][0] // hd, k, v, kv[tp.r][0], G)
+        kk, vv = _group(q, own[tp.r][0] // hd, k, v,
+                        kv_heads_read(cfg, tp.m, tp.r)[0], G)
         o = L.chunked_attention(q, kk, vv, q_positions=positions,
-                                kv_positions=positions, causal=True,
+                                kv_positions=kv_pos,
+                                causal=causal and cross is None,
                                 window=window, softcap=cfg.logit_softcap,
                                 aligned=aligned).reshape(B, S, -1)
     else:  # a rank that starts no head
         o = h.new_empty((B, S, 0))
     if own != have:
         o = C.regroup(o, own, have, "model", tp.mesh, dim=2)
-    return L.linear(p["wo"], o), sharded, (k, v)
+    return L.linear({"w": p["wo"]["w"]}, o), sharded, (k, v)
 
 
 def ffn(p: dict, h, cfg: ModelConfig, tp: TPLayout):
-    """SwiGLU over the rank's block of d_ff: (output, partial sum?)."""
+    """SwiGLU over the rank's block of d_ff, reduced to the residual's
+    layout."""
     a = F.silu(L.linear(p["gate"], h)) * L.linear(p["up"], h)
-    sharded = _sharded(in_features(p["down"]), cfg.d_ff, tp)
-    return L.linear(p["down"], a), sharded
+    return row_parallel(p["down"], a, cfg.d_ff, tp)
 
 
 def embed(p: dict, tokens, cfg: ModelConfig, dtype, tp: TPLayout, *,
@@ -268,18 +370,18 @@ def _layer(lp, x, cfg, tp, positions, window, aligned, store):
     under ``shard_activations_seq``).  Returns (x, the (k, v) the rank
     read (:func:`kv_heads_read`) when ``store``, aux)."""
     h = _whole_seq(L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps), tp)
-    y, sharded, kv = attention(lp["attn"], h, cfg, tp, positions=positions,
-                               window=window, aligned=aligned)
-    x = x + _reduce(y, sharded, tp)
+    y, sharded, kv = _attention(lp["attn"], h, cfg, tp, positions=positions,
+                                window=window, aligned=aligned)
+    x = x + _reduce(y, sharded, tp)  # (no layer of the family has a wo bias)
     h = _whole_seq(L.rmsnorm(lp["ffn_norm"], x, cfg.norm_eps), tp)
     if "moe" in lp:
         from repro_torch.models.moe import moe_ffn
 
         y, aux = moe_ffn(lp["moe"], h, cfg, tp.par, row_axes=tp.rows)
-        sharded = False  # the MoE sums its experts' blocks itself
+        y = _reduce(y, False, tp)  # the MoE sums its experts' blocks itself
     else:
-        (y, sharded), aux = ffn(lp["ffn"], h, cfg, tp), None
-    return x + _reduce(y, sharded, tp), kv if store else None, aux
+        y, aux = ffn(lp["ffn"], h, cfg, tp), None
+    return x + y, kv if store else None, aux
 
 
 def _train_layer(lp, x, cfg, tp, positions, window):
@@ -395,6 +497,18 @@ def token_nll(logits, targets, cfg: ModelConfig, tp: TPLayout):
 # ---------------------------------------------------------------------------
 
 
+def init_cache(cfg: ModelConfig, tp: TPLayout, batch: int, max_len: int,
+               dtype=None, *, device) -> dict:
+    """Zeroed rank's part of a prefill's dense rows: {"k", "v"} (L,
+    batch, max_len, hi - lo, hd) of the kv heads [lo, hi) it reads
+    (:func:`kv_heads_read`)."""
+    lo, hi = kv_heads_read(cfg, tp.m, tp.r)
+    shape = (cfg.n_layers, batch, max_len, hi - lo, cfg.resolved_head_dim())
+    dtype = dtype or getattr(torch, cfg.dtype)
+    return {n: torch.zeros(shape, dtype=dtype, device=device)
+            for n in ("k", "v")}
+
+
 def prefill(params, tokens, cfg: ModelConfig, tp: TPLayout, *, lengths,
             cache: dict, embeddings=None):
     """Prompt forward over this rank's rows, writing each layer's (k, v)
@@ -440,15 +554,14 @@ def decode_layer(lp, x, cfg: ModelConfig, tp: TPLayout, *, cache_k, cache_v,
     sharded = _sharded(n, Hq * hd, tp)
     if sharded:  # the columns of the rank's block of wo
         o = o.narrow(-1, tp.r * n, n)
-    x = x + _reduce(L.linear(p["wo"], o), sharded, tp)
+    x = x + row_parallel(p["wo"], o, Hq * hd, tp, sharded=sharded)
     h = L.rmsnorm(lp["ffn_norm"], x, cfg.norm_eps)
     if "moe" in lp:
         from repro_torch.models.moe import moe_ffn
 
         y, _ = moe_ffn(lp["moe"], h, cfg, tp.par, row_axes=tp.rows)
         return x + y
-    y, sharded = ffn(lp["ffn"], h, cfg, tp)
-    return x + _reduce(y, sharded, tp)
+    return x + ffn(lp["ffn"], h, cfg, tp)
 
 
 def decode_step(params, tokens, cache: dict, cache_len, cfg: ModelConfig,

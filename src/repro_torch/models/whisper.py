@@ -15,6 +15,10 @@ output, and a GELU MLP.  The cache is dense rows, updated **in place**:
 Hkv, D)}, batch on axis 1 of every leaf.  ``cfg.remat == "full"`` runs
 each encoder and decoder layer under ``torch.utils.checkpoint`` when
 its activations carry gradients (training).
+
+Under a mesh with a ``model`` axis the same layers run on each weight's
+and cache leaf's ``model`` block: ``models.tp_whisper`` (``encode``,
+``forward``, ``prefill``, ``decode_step``).
 """
 from __future__ import annotations
 

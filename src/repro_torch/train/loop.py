@@ -13,11 +13,12 @@ rank stores what a device of the JAX layout stores.  Each rank takes
 its rows of the global batch (``par.spec("batch")``), and the model
 reads the blocks through a view that gathers a leaf where the model
 uses it (``gather_leaf``; under remat inside each layer's recompute);
-the gathers' backward reduce-scatters the grads.  The transformer family
-computes on its ``model`` blocks (``models.tensor_parallel``, read
-through :func:`local_view`, which gathers a leaf over every axis but
-``model``), with the residual sequence-sharded under
-``shard_activations_seq``; the other families read every leaf gathered
+the gathers' backward reduce-scatters the grads.  Under tensor
+parallelism every family computes on its ``model`` blocks
+(``models.tensor_parallel`` and its family modules, read through
+:func:`local_view`, which gathers a leaf over every axis but ``model``),
+with the residual sequence-sharded under ``shard_activations_seq``;
+without it (``par.tp`` False) the model reads every leaf gathered
 (:func:`gathered_view`).
 """
 from __future__ import annotations
@@ -68,7 +69,7 @@ def lm_loss(params, batch, cfg: ModelConfig,
     if _sharded(par) and TP.applies(cfg, par):
         # this rank's vocab block of the logits, reduced over "model"
         tp = TP.TPLayout(par, rows=par.spec("batch")[0])
-        logits, aux = TP.forward(params, tokens, cfg, tp, **kw)
+        logits, aux = TP.family(cfg).forward(params, tokens, cfg, tp, **kw)
         nll = TP.token_nll(logits.float(), targets, cfg, tp)
     else:
         if _sharded(par) and cfg.moe:
@@ -183,21 +184,34 @@ class _View(Mapping):
 def _align_parts(parts, blocks, specs, par, layer, keep):
     """A quantized leaf read as the rank's blocks along ``keep``: a part
     stored whole where its codes are split (its dim did not divide, e.g.
-    Q8 scales of K / 32 rows) is cut to the same block."""
+    Q8 scales of K / 32 rows) is cut to the same block.  Where it cannot
+    be cut (a tile-Q4 leaf whose column block is no whole number of
+    16-column scale groups, zamba2-1.2b's ``in_proj`` on 16: 524 columns
+    a rank), the leaf is kept whole: its codes are gathered along those
+    axes, the one weight that moves over them, as ``param_specs`` keeps
+    a dim that does not divide."""
     if not keep:
         return parts
     cspec = specs["codes"][1:] if layer is not None and \
         specs["codes"][0] is None else specs["codes"]
+    cuts = {}
     for name, t in parts.items():
         sspec = specs[name][1:] if layer is not None and \
             specs[name][0] is None else specs[name]
         for d, entry in enumerate(cspec):
-            kept = [a for a in axes_of(entry) if a in keep]
+            kept = tuple(a for a in axes_of(entry) if a in keep)
             if kept and d < t.dim() and name != "codebook" and \
                     not set(kept) & set(axes_of(sspec[d] if d < len(sspec)
                                                 else None)):
-                parts[name] = shard_of(t, (None,) * d + (tuple(kept),),
-                                       par).contiguous()
+                if t.shape[d] % par.size(kept):
+                    parts["codes"] = C.all_gather(parts["codes"], kept,
+                                                  par.mesh, dim=d,
+                                                  tiled=True)
+                    return parts
+                cuts[name] = (d, kept)
+    for name, (d, kept) in cuts.items():
+        parts[name] = shard_of(parts[name], (None,) * d + (kept,),
+                               par).contiguous()
     return parts
 
 
@@ -211,18 +225,26 @@ def local_view(blocks, specs, par: ParallelContext):
     every axis but ``model`` (the FSDP ``embed_fsdp`` dims over ``data``),
     so it reads as the rank's ``model`` block of the leaf, or the whole
     leaf where its spec does not name ``model``.  ``gather_leaf`` asserts
-    that no weight is gathered over ``model``."""
+    that no weight is gathered over ``model``; the one exception is a Q4
+    leaf whose block does not tile (:func:`_align_parts`)."""
     return _View(blocks, specs, par, memo={}, keep=("model",))
+
+
+# the stacked layer lists of every family, which the dry-run's cells also
+# pass to ``param_specs`` (the rules alone see only "layers" as stacked and
+# would split Whisper's layer dim over "model")
+LAYER_STACKS = ("layers", "enc_layers", "dec_layers")
 
 
 def shard_params(params, par: ParallelContext):
     """(blocks, specs): the port's global tree (identical on every rank)
     as this rank's blocks of ``param_specs(par)`` in the JAX layout
-    (nested dicts, stacked layers), built leaf by leaf so no stacked copy
-    of the whole tree is made."""
+    (nested dicts, stacked layers, each of :data:`LAYER_STACKS` seen as
+    stacked), built leaf by leaf so no stacked copy of the whole tree is
+    made."""
     abstract = stack_layers(T.map_with_path(lambda _, t: t.to("meta"),
                                             params))
-    specs = param_specs(abstract, par)
+    specs = param_specs(abstract, par, stacked_prefixes=LAYER_STACKS)
     out: dict = {}
     for path, parts, stacked in T.stacked_leaves(params):
         *keys, last = path.split("/")
@@ -283,7 +305,8 @@ def _leaves(tree, path=()):
 def model_view(blocks, specs, cfg: ModelConfig, par: ParallelContext):
     """The view a sharded program of ``cfg`` reads its weights through:
     :func:`local_view` where the tensor-parallel layout applies
-    (``models.tensor_parallel.applies``), else :func:`gathered_view`."""
+    (``models.tensor_parallel.applies``: every family under a ``model``
+    axis with ``par.tp``), else :func:`gathered_view`."""
     from repro_torch.models import tensor_parallel as TP
 
     if TP.applies(cfg, par):
@@ -383,7 +406,8 @@ def make_train_step(cfg: ModelConfig, oc: AdamWConfig,
 
 def _make_sharded_step(cfg, oc, par, microbatches, grad_transform, specs):
     if specs is None:
-        specs = param_specs(stack_layers(api.abstract_params(cfg)), par)
+        specs = param_specs(stack_layers(api.abstract_params(cfg)), par,
+                            stacked_prefixes=LAYER_STACKS)
     rows = par.spec("batch")[0]
 
     def train_step(blocks, opt_state, batch):

@@ -335,8 +335,12 @@ def test_dryrun_single_cell_subprocess(tmp_path):
     assert rec["per_device"]["flops"] > 0
     assert rec["per_device"]["argument_bytes"] > 0
     assert rec["mesh"] == "2x16x16"
-    # the serve step's weight gathers: all-gathers of result bytes
-    assert rec["collectives"]["all-gather"]["count"] > 0
+    # the serve step moves activations, not weights (the tensor-parallel
+    # layout): the regrouped in_proj and conv columns point to point and
+    # the row-parallel sums; no all-gather
+    assert rec["collectives"]["collective-permute"]["count"] > 0
+    assert rec["collectives"]["all-reduce"]["count"] > 0
+    assert "all-gather" not in rec["collectives"]
 
 
 # ---------------------------------------------------------------------------

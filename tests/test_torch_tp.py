@@ -7,7 +7,8 @@ compute on each weight's ``model`` block, rows on their ``data`` block.
   residual a layer forward and their transposes backward; without it,
   two ``psum``s a layer each way; and no all-gather over ``model`` whose
   operand or result has a weight leaf's shape, in the train, prefill and
-  decode cells.
+  decode cells of qwen2.5-1.5b, mamba2-130m, zamba2-1.2b and whisper-base
+  (the other families' own tests: ``tests/test_torch_tp_families.py``).
 - On four ``gloo`` ranks of a real (2, 2) mesh (no JAX in the ranks), the
   tensor-parallel prefill and decode against the same program on one
   rank: the rank's vocab block of its rows' logits, and its part of the
@@ -128,12 +129,21 @@ def test_recorder_bytes_per_layer():
         assert got == [each] * n, (kind, got)
 
 
-@pytest.mark.parametrize("shape", ["train", "prefill", "decode"])
-def test_no_weight_is_gathered_over_model(shape):
-    """The qwen2.5-1.5b smoke cells on an AbstractMesh (2, 2): no
-    all-gather over ``model`` has an operand or a result of a weight
-    leaf's shape (global, per layer, the rank's block, or gathered over
-    ``data``), while the cells do move activations over ``model``."""
+# (arch, cell): the transformer family's cells keep their ids
+NO_GATHER_CASES = [(a, s) for a in (ARCH, "mamba2-130m", "zamba2-1.2b",
+                                    "whisper-base")
+                   for s in ("train", "prefill", "decode")]
+
+
+@pytest.mark.parametrize("arch,shape", NO_GATHER_CASES,
+                         ids=[s if a == ARCH else f"{a}-{s}"
+                              for a, s in NO_GATHER_CASES])
+def test_no_weight_is_gathered_over_model(arch, shape):
+    """The smoke cells of qwen2.5-1.5b, mamba2-130m, zamba2-1.2b and
+    whisper-base on an AbstractMesh (2, 2): no all-gather over ``model``
+    has an operand or a result of a weight leaf's shape (global, per
+    layer, the rank's block, or gathered over ``data``), while the cells
+    do move activations over ``model``."""
     from repro_torch.configs import inputs as I
     from repro_torch.configs.base import InputShape
     from repro_torch.distributed import collectives as C
@@ -146,7 +156,7 @@ def test_no_weight_is_gathered_over_model(shape):
     kinds = {"train": (32, 8, "train"), "prefill": (32, 8, "prefill"),
              "decode": (64, 8, "decode")}
     S_, B_, kind = kinds[shape]
-    cell = I.build_cell(ARCH, InputShape(f"{shape}_small", S_, B_, kind),
+    cell = I.build_cell(arch, InputShape(f"{shape}_small", S_, B_, kind),
                         par, smoke=True)
     weights = set()
     for g, spec in zip(_leaves(cell.global_args[0]), _leaves_spec(
