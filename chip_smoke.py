@@ -165,14 +165,33 @@ Phases, one JSON line each:
    the offline quantizer's, and each leaf through K3 at M = 8 against
    ``dequant_matmul_ref``; each projection shape timed beside an empty
    kernel on its grid and on one block (the launch floor);
-10. ``profile``: where a decode step's time goes, under ``torch.profiler``,
+10. ``autotune`` (``autotune_phase``): ``kernels.autotune`` tunes K3 at
+   qwen2.5-1.5b's Q4 shapes at M 8, 32 and 32,704 and at olmoe-1b-7b's
+   and zamba2-1.2b's at M 8, K5 at B1 S2048 and K6 at the three
+   projection shapes into a cache of its own (one ``autotune`` line per
+   shape: each candidate's device ms, the analytic choice, the winner,
+   K3's ``torch.matmul``), holds every K3 candidate, both K6 loads and
+   K5's winner against the plain version, checks that each wrapper
+   launches the recorded winner after ``autotune.reset()`` and the
+   analytic choice under ``REPRO_AUTOTUNE=0``, and serves spec/base's
+   greedy Best-of-8 with the empty cache and with the tuned one
+   (``autotune/untuned``, ``autotune/tuned``), then zamba2-1.2b's greedy
+   Best-of-8 on dense rows untuned, tuned, tuned, untuned
+   (``autotune/zamba2/...``); tokens held by the ``SPEC_GAP`` rule, every
+   K3 launch's plan checked, an ``autotune_serve`` line each (metrics
+   averaged over a side's runs);
+11. ``profile``: where a decode step's time goes, under ``torch.profiler``,
    with K3's and K1/K2's device ms per decode step, for qwen2.5-1.5b, for
    olmoe-1b-7b (with its experts' dequant and products timed by CUDA
    events at the step's shapes and set against the step) and for
    zamba2-1.2b on dense rows.
 
 Phases 8 and 9 reset the counters, drive their entry point once per case,
-and read the counts before any comparison or timing launches.  Then a
+and read the counts before any comparison or timing launches.  Every
+phase but the autotune phase's tuning runs against an empty autotune
+cache (``pin_autotune_cache``: ``REPRO_AUTOTUNE_CACHE`` set to a fresh
+file under ``build/``), so each wrapper launches its analytic choice
+whatever cache the machine holds.  Then a
 ``{"kernels": [...]}`` line (each row's ``launches`` from the run of its
 own path or phase), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -275,28 +294,13 @@ def nvidia_smi() -> str:
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 3) -> float:
-    """Device milliseconds per call.  A sleep kernel holds the stream
-    while the host queues every call, so the CUDA events time the calls
-    back to back on the device, without the host's launch overhead."""
-    import torch
+    """Device milliseconds per call (``kernels.autotune.device_ms``): a
+    sleep kernel holds the stream while the host queues every call, so
+    the CUDA events time the calls back to back on the device, without
+    the host's launch overhead."""
+    from repro_torch.kernels import autotune as A
 
-    fn()  # one-time set-up (library handles, per-shape plans) is not timed
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(warmup):
-        fn()
-    host_s = (time.perf_counter() - t0) / warmup  # enqueue cost per call
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    # ~2e9 cycles/s at the H100's top clock: sleep past the enqueue time
-    torch.cuda._sleep(int(2e9 * (2 * host_s * iters + 1e-3)))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return A.device_ms(fn, iters, warmup)
 
 
 def call_ms(fn, iters: int = 50) -> float:
@@ -603,6 +607,7 @@ def check_gemm_kernel(results: list, gemm_mkn: dict) -> None:
     carries) and a ragged M."""
     import torch
 
+    from repro_torch.kernels import autotune as AT
     from repro_torch.kernels import lut_dequant_gemm as G
     from repro_torch.quant import tile_quant as TQ
 
@@ -645,7 +650,7 @@ def check_gemm_kernel(results: list, gemm_mkn: dict) -> None:
         del rot
         nbytes, flops = gemm_bytes_flops(x, qw)
         b_ms, b_by = bound(nbytes, flops, "bfloat16")
-        pl = G.plan(M, K, N, torch.bfloat16)
+        pl = AT.gemm_plan(M, K, N, torch.bfloat16)  # what the wrapper ran
         row = {"name": f"lut_dequant_gemm/M{M}xK{K}xN{N}", "route": "cuda",
                "source": GEMM_SRC, "replaces": REPLACES["lut_dequant_gemm"],
                "max_abs_err": max(errs.values()), "ms": ms,
@@ -807,7 +812,7 @@ def flash_phase(results: list, dev: str = "cuda") -> dict:
 
     from repro_torch.kernels import lut_softmax_attention as LA
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.autotune import pick_block
+    from repro_torch.kernels.autotune import attn_blocks
 
     t0 = time.perf_counter()
     inputs = {c["name"]: flash_inputs(c, dev) for c in FLASH_CASES}
@@ -827,7 +832,8 @@ def flash_phase(results: list, dev: str = "cuda") -> dict:
     for c in FLASH_CASES:
         q, k, v = (heads_first(x) for x in inputs[c["name"]])
         G = c["Hq"] // c["Hkv"]
-        bkv = pick_block(c["Skv"], 128)
+        # the KV block ops.flash_attention launched
+        bkv = attn_blocks(c["B"] * c["Hq"], c["Sq"], c["Skv"], c["D"])[1]
         o32 = ref.attention_f32_ref(q, k.repeat_interleave(G, 0),
                                     v.repeat_interleave(G, 0),
                                     causal=c["causal"])
@@ -894,6 +900,7 @@ def quantize_phase(results: list, dev: str = "cuda",
     import torch
 
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import autotune as AT
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import tile_quantize as TK
     from repro_torch.models import transformer as TR
@@ -954,7 +961,7 @@ def quantize_phase(results: list, dev: str = "cuda",
                "max_abs_err": 0.0, "ms": time_ms(run),
                "call_ms": call_ms(run),
                "launch_floor_ms": floors[f"{K}x{N}"],
-               "wide_loads": TK.wide_loads(w),
+               "wide_loads": AT.quantize_wide(K, N, w.dtype),
                "plain_ms": time_ms(lambda: TK.plain_tile_quantize(w),
                                    iters=10),
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -967,6 +974,292 @@ def quantize_phase(results: list, dev: str = "cuda",
         empty_kernel_ms_1block=floor_1block, empty_kernel_ms_by_shape=floors,
         seconds=time.perf_counter() - t0)
     return {"counts": counts, "by_shape": by_shape}
+
+
+# K3 tuned at the served shapes, at full width: qwen2.5-1.5b's Q4
+# projections at M 8 (decode: 8 slots), 32 (a speculative verify: 8 slots
+# x W 4) and 32,704 (the long prefill), olmoe-1b-7b's and zamba2-1.2b's
+# at M 8; K5 at the flash phase's first timed case (B1 S2048) in lut mode;
+# K6 at the quantize phase's three projection shapes (f32)
+AUTOTUNE_M = (8, 32, 32704)
+AUTOTUNE_ARCHS = (MOE_ARCH, "zamba2-1.2b")
+AUTOTUNE_LARGE_M = dict(iters=3, rounds=2)  # up to ~10 ms a call
+
+
+def autotune_shapes() -> list:
+    """The (M, K, N) of K3 the autotune phase tunes, in order."""
+    from repro_torch.configs.registry import get_config
+
+    out = [(m, k, n) for m in AUTOTUNE_M
+           for k, n in sorted(gemm_layout(get_config("qwen2.5-1.5b")))]
+    for arch in AUTOTUNE_ARCHS:
+        out += [(8, k, n) for k, n in sorted(gemm_layout(get_config(arch)))
+                if (8, k, n) not in out]
+    return out
+
+
+def _plan_name(pl) -> str:
+    return {"small_m": f"mt{pl.mt}/wk{pl.wk}/kz{pl.kz}",
+            "large_m": f"kz{pl.kz}"}.get(pl.regime, pl.regime)
+
+
+class _LaunchSpy:
+    """Records what each launch of K3, K5 and K6 was: K3's (M, K, N,
+    dtype, Plan) at ``lut_dequant_gemm._launch``, K5's (BH, Sq, Skv, bkv) where
+    ``ops.flash_attention`` calls its wrapper, K6's (K, N, wide) at
+    ``tile_quantize._launch``.  The wrappers' own globals stay as they
+    are, so their launch counters count as always."""
+
+    def __init__(self):
+        import types
+
+        from repro_torch.kernels import lut_dequant_gemm as G
+        from repro_torch.kernels import lut_softmax_attention as LA
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import tile_quantize as TK
+
+        g, la, tk = G._launch, LA.lut_softmax_attention, TK._launch
+        self.calls = []
+
+        def gemm(x, codes, scales, codebook, out, pl, **kw):
+            self.calls.append((*x.shape, out.shape[1], x.dtype, pl))
+            return g(x, codes, scales, codebook, out, pl, **kw)
+
+        def attn(q, k, v, lut, *, bkv=128, **kw):
+            self.calls.append((*q.shape[:2], k.shape[1], bkv))
+            return la(q, k, v, lut, bkv=bkv, **kw)
+
+        def quant(w, wide):
+            self.calls.append((*w.shape, wide))
+            return tk(w, wide)
+
+        self.swaps = ((G, "_launch", gemm),
+                      (ops, "_attn", types.SimpleNamespace(
+                          lut_softmax_attention=attn)),
+                      (TK, "_launch", quant))
+        self.orig = [getattr(m, n) for m, n, _ in self.swaps]
+
+    def __enter__(self):
+        for m, n, fn in self.swaps:
+            setattr(m, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n, _), fn in zip(self.swaps, self.orig):
+            setattr(m, n, fn)
+
+
+def autotune_phase(dev: str = "cuda") -> dict:
+    """``kernels.autotune`` on the card.  Tunes K3, K5 and K6
+    (``tune_gemm`` / ``tune_attn`` / ``tune_quantize``: every candidate
+    timed with CUDA events, the fastest recorded) into a cache of this
+    phase's own, and prints one ``autotune`` line per shape (each
+    candidate's device ms, the analytic choice and its ms, the winner, and
+    for K3 ``torch.matmul`` on the dequantized weight, timed as the
+    candidates: each call on its own copy of the weight, out of L2).  Holds
+    every K3 candidate and both K6 loads against the plain version, and
+    K5's winner at its own KV block.  Then, after ``autotune.reset()``,
+    each wrapper must launch the recorded winner, and under
+    ``REPRO_AUTOTUNE=0`` the analytic choice again.  Last, the served A/B:
+    spec/base's greedy Best-of-8 (qwen2.5-1.5b W4A16, Q8 KV, exact, 4
+    tasks x 48 tokens) with the empty cache the other phases run against
+    (``autotune/untuned``), then with the tuned one (``autotune/tuned``),
+    and zamba2-1.2b's greedy Best-of-8 on dense rows untuned, tuned,
+    tuned, untuned (``autotune/zamba2/...``: its M8 shapes were never
+    swept, and its winners differ from the plan), each K3 launch's plan
+    recorded and checked; each tuned side's tokens held to its untuned
+    side's (first runs) by the ``SPEC_GAP`` rule, the metrics averaged
+    over each side's runs.  Returns {"winners"}."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import autotune as AT
+    from repro_torch.kernels import lut_dequant_gemm as G
+    from repro_torch.kernels import lut_softmax_attention as LA
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import tile_quantize as TK
+    from repro_torch.quant import tile_quant as TQ
+
+    t0 = time.perf_counter()
+    card = nvidia_smi()
+    bf16 = torch.bfloat16
+    pinned = os.environ["REPRO_AUTOTUNE_CACHE"]
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="autotune-", dir=ROOT / "build")
+    tuned = os.path.join(tmp, "autotune.json")
+    gemm_win, gemm_ana, gemm_args = {}, {}, {}
+
+    def use(cache, on=True):
+        os.environ["REPRO_AUTOTUNE_CACHE"] = cache
+        if on:
+            os.environ.pop("REPRO_AUTOTUNE", None)
+        else:
+            os.environ["REPRO_AUTOTUNE"] = "0"
+        AT.reset()
+
+    try:
+        use(tuned)
+        for M, K, N in autotune_shapes():
+            ms = AT.tune_gemm(M, K, N, dtype=bf16, device=dev,
+                              **(AUTOTUNE_LARGE_M if M > G.SMALL_M else {}))
+            ana = G.plan(M, K, N, bf16)
+            best = min(ms, key=ms.get)
+            x, qw = gemm_case(M, K, N, bf16, seed=M + N)
+            args = (x, qw["codes"], qw["scales"], qw["codebook"])
+            want = G.plain_lut_dequant_gemm(*args)
+            err = 0.0
+            for pl in ms:
+                out = torch.empty((M, N), dtype=bf16, device=dev)
+                G._launch(*args, out, pl)
+                torch.cuda.synchronize()
+                err = max(err, check_close(
+                    f"autotune/lut_dequant_gemm/{M}x{K}x{N}/"
+                    f"{_plan_name(pl)}", out, want, 2e-2, 2e-2 + 2.0 ** -7))
+            del want, out
+            w = TQ.dequantize(qw, dtype=bf16)
+            rot = [w] + [w.clone() for _ in range(
+                copies_past_l2(w.numel() * 2) - 1)]
+            matmul_ms = time_ms_cold([(lambda w=w: torch.matmul(x, w))
+                                      for w in rot])
+            del rot, w
+            gemm_win[M, K, N], gemm_ana[M, K, N] = best, ana
+            gemm_args[M, K, N] = args
+            emit("autotune", kernel="lut_dequant_gemm", M=M, K=K, N=N,
+                 dtype="bfloat16", regime=ana.regime,
+                 ms={_plan_name(p): t for p, t in ms.items()},
+                 analytic=_plan_name(ana), analytic_ms=ms[ana],
+                 winner=_plan_name(best), winner_ms=ms[best],
+                 winner_over_analytic=ms[best] / ms[ana],
+                 matmul_ms=matmul_ms, winner_over_matmul=ms[best] / matmul_ms,
+                 candidates=len(ms), max_abs_err=err, timing="cold",
+                 nvidia_smi=card)
+
+        c = FLASH_CASES[0]
+        BH, G_kv = c["B"] * c["Hq"], c["Hq"] // c["Hkv"]
+        ms = AT.tune_attn(BH, c["Sq"], c["Skv"], c["D"], kv_group=G_kv,
+                          causal=c["causal"], device=dev)
+        attn_ana = (AT.pick_block(c["Sq"], 128), AT.pick_block(c["Skv"], 128))
+        attn_win = min(ms, key=ms.get)
+        emit("autotune", kernel="lut_softmax_attention", case=c["name"],
+             exp_mode="lut", ms={f"bkv{b[1]}": t for b, t in ms.items()},
+             analytic=f"bkv{attn_ana[1]}", analytic_ms=ms[attn_ana],
+             winner=f"bkv{attn_win[1]}", winner_ms=ms[attn_win],
+             winner_over_analytic=ms[attn_win] / ms[attn_ana],
+             candidates=len(ms), timing="hot", nvidia_smi=card)
+
+        q_win, q_ana, q_w = {}, {}, {}
+        for K, N in sorted(gemm_layout(get_config("qwen2.5-1.5b"))):
+            ms = AT.tune_quantize(K, N, dtype=torch.float32, device=dev)
+            gen = torch.Generator(device=dev).manual_seed(K + N)
+            w = torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)
+            codes, scales = TK.plain_tile_quantize(w)
+            for wide in ms:
+                got = TK._launch(w, wide)
+                torch.cuda.synchronize()
+                if not (torch.equal(got[0], codes)
+                        and torch.equal(got[1], scales)):
+                    raise AssertionError(f"autotune/tile_quantize {K}x{N} "
+                                         f"wide={wide}: not bit-identical "
+                                         f"to the plain version")
+            q_win[K, N] = min(ms, key=ms.get)
+            q_ana[K, N] = TK.wide_loads(w)
+            q_w[K, N] = w
+            emit("autotune", kernel="tile_quantize", K=K, N=N,
+                 dtype="float32", ms={f"wide={b}": t for b, t in ms.items()},
+                 analytic=f"wide={q_ana[K, N]}", analytic_ms=ms[q_ana[K, N]],
+                 winner=f"wide={q_win[K, N]}", winner_ms=ms[q_win[K, N]],
+                 winner_over_analytic=ms[q_win[K, N]] / ms[q_ana[K, N]],
+                 candidates=len(ms), max_abs_err=0.0, timing="cold",
+                 nvidia_smi=card)
+
+        # the plumbing: after reset() each wrapper launches the recorded
+        # winner; under REPRO_AUTOTUNE=0 the analytic choice again
+        qkv = flash_inputs(c, dev)
+        lut = ops.exp_lut(dev)
+        q, k, v = (heads_first(t) for t in qkv)
+        pickup = {}
+        for label, cache, on in (("tuned", tuned, True),
+                                 ("off", tuned, False)):
+            use(cache, on)
+            with _LaunchSpy() as spy:
+                for args in gemm_args.values():
+                    G.lut_dequant_gemm(*args)
+                outs = {mode: ops.flash_attention(*qkv, causal=c["causal"],
+                                                  exp_mode=mode)
+                        for mode in FLASH_MODES}
+                for w in q_w.values():
+                    TK.tile_quantize(w)
+            torch.cuda.synchronize()
+            pick = gemm_win if on else gemm_ana
+            want_calls = [(*mkn, bf16, pick[mkn]) for mkn in gemm_args]
+            bkv = (attn_win if on else attn_ana)[1]
+            want_calls += [(BH, c["Sq"], c["Skv"], bkv)] * len(FLASH_MODES)
+            want_calls += [(*kn, (q_win if on else q_ana)[kn]) for kn in q_w]
+            if spy.calls != want_calls:
+                raise AssertionError(f"autotune {label}: launched "
+                                     f"{spy.calls}, expected {want_calls}")
+            # K5 at the KV block it launched, against the plain version
+            for mode, o in outs.items():
+                check_close(f"autotune/flash/{label}/{mode}", heads_first(o),
+                            LA.plain_lut_softmax_attention(
+                                q, k, v, lut, causal=c["causal"], bkv=bkv,
+                                exp_mode=mode, kv_group=G_kv), 2e-3)
+            pickup[label] = len(spy.calls)
+        del gemm_args, q_w, qkv, q, k, v, outs
+
+        # the served A/Bs, each K3 launch's plan recorded; the tokens of
+        # each side's first run held by spec_parity, the metrics averaged
+        serves = {}
+        for base, (src, tuned_path, halves) in AUTOTUNE_AB.items():
+            spec, plans = {}, {}
+            got = {base: [], tuned_path: []}
+            order = ((base, pinned), (tuned_path, tuned))
+            for path, cache in (order + order[::-1])[:2 * halves]:
+                use(cache)
+                with _LaunchSpy() as spy:
+                    runs, sp = serve_runs({path: SERVE_PATHS[src]})
+                got[path].append(runs[path])
+                spec.setdefault(path, sp[path])
+                spec["eos_id"] = sp["eos_id"]
+                n = plans.setdefault(path, {})
+                for M, K, N, dtype, pl in spy.calls:
+                    key = f"{M}x{K}x{N}/{_plan_name(pl)}"
+                    n[key] = n.get(key, 0) + 1
+                    want = (gemm_win if cache == tuned and dtype == bf16
+                            else {}).get((M, K, N)) or G.plan(M, K, N, dtype)
+                    if pl != want:
+                        raise AssertionError(f"{path}: K3 at {(M, K, N)} "
+                                             f"launched {pl}, expected "
+                                             f"{want}")
+            spec_parity(spec, spec.pop("eos_id"), base=base,
+                        paths=(tuned_path,))
+            u, t = ({k: sum(r["metrics"][k] for r in got[p]) / len(got[p])
+                     for k in got[p][0]["metrics"]}
+                    for p in (base, tuned_path))
+            serves[base] = t["decode_tok_per_s"] / u["decode_tok_per_s"]
+            emit("autotune_serve", paths=[base, tuned_path], serves_as=src,
+                 runs_each=halves,
+                 **{f"{k}_{p}": m[k] for p, m in (("untuned", u),
+                                                   ("tuned", t)) for k in m},
+                 decode_tok_per_s_by_run={p: [r["metrics"][
+                     "decode_tok_per_s"] for r in got[p]] for p in got},
+                 k3_launches={p: [r["counts"]["lut_dequant_gemm"]
+                                  for r in got[p]] for p in got},
+                 k3_plans=plans,
+                 tok_per_s_tuned_over_untuned=serves[base],
+                 nvidia_smi=card)
+        emit("autotune_done", pickup_launches=pickup,
+             tok_per_s_tuned_over_untuned=serves, nvidia_smi=card,
+             seconds=time.perf_counter() - t0)
+    finally:
+        use(pinned)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"winners": {"gemm": gemm_win, "attn": attn_win, "quantize":
+                        q_win}}
 
 
 # ---------------------------------------------------------------------------
@@ -1529,6 +1822,19 @@ SERVE_PATHS["dense/bf16"] = ("dense", "exact", [
 # over the K4-dequantized prefix, K3 at M = 8 W) lies far below it
 SPEC_GAP = 0.1
 TOPK = 16  # base-run logits kept per row and step for the gap
+# the autotune phase's served A/Bs, greedy serves with the empty cache
+# every other phase runs against (untuned) and with the tuned one:
+# spec/base's qwen2.5-1.5b Best-of-8 over 4 tasks on Q8 KV, untuned then
+# tuned, and ssm/zamba2's zamba2-1.2b Best-of-8 over 2 tasks on dense
+# rows, untuned, tuned, tuned, untuned (its tuned launches differ)
+AUTOTUNE_AB = {
+    "autotune/untuned": ("spec/base", "autotune/tuned", 1),
+    "autotune/zamba2/untuned": ("ssm/zamba2", "autotune/zamba2/tuned", 2)}
+AUTOTUNE_PATHS = tuple(p for base, (_, tuned, _) in AUTOTUNE_AB.items()
+                       for p in (base, tuned))
+GREEDY_PATHS = ("spec/base",) + AUTOTUNE_PATHS
+TOKEN_PATHS = SPEC_PATHS + AUTOTUNE_PATHS
+TOP_PATHS = ("spec/base",) + tuple(AUTOTUNE_AB)
 
 
 def greedy_serve(argv: list) -> list:
@@ -1550,21 +1856,23 @@ def greedy_serve(argv: list) -> list:
                  [serve.spec_of(args)], gen, R.OracleVerifier(),
                  continuous=True, n_slots=args.slots,
                  sc=SamplerConfig(greedy=True))
-    if engine.pool.blocks_in_use:
+    if engine.pool is not None and engine.pool.blocks_in_use:
         raise AssertionError(f"spec/base: {engine.pool.blocks_in_use} "
                              f"blocks in use after drain")
     return rows
 
 
-def spec_parity(spec: dict, eos_id: int) -> None:
-    """Hold each speculative path's greedy tokens against spec/base's: the
-    share of identical rows, and at each row's first divergence the base
-    run's logit gap between its token and the path's (from the base run's
+def spec_parity(spec: dict, eos_id: int, base: str = "spec/base",
+                paths: tuple = SPEC_PATHS[1:]) -> None:
+    """Hold each of ``paths``' greedy tokens against ``base``'s (by
+    default each speculative path against spec/base): the share of
+    identical rows, and at each row's first divergence the base run's
+    logit gap between its token and the path's (from the base run's
     top-``TOPK`` logits of that row and position).  Fails if a gap exceeds
     ``SPEC_GAP`` or the path's token is not among the base's top
     ``TOPK``."""
-    base = spec["spec/base"]
-    for path in ("spec/self", "spec/draft"):
+    base_path, base = base, spec[base]
+    for path in paths:
         got = spec[path]["tokens"]
         same, divs = 0, []
         for key, want in sorted(base["tokens"].items()):
@@ -1582,14 +1890,15 @@ def spec_parity(spec: dict, eos_id: int) -> None:
                 gap = vals[idx.index(a)] - vals[idx.index(b)]
             divs.append({"req": key[0], "sample": key[1], "pos": p,
                          "base_token": a, "spec_token": b, "base_gap": gap})
-        emit("spec_parity", path=path, rows=len(base["tokens"]),
+        emit("spec_parity", path=path, base=base_path,
+             rows=len(base["tokens"]),
              identical_rows=same, share=same / len(base["tokens"]),
              divergences=divs, bound=SPEC_GAP)
         bad = [d for d in divs if d["base_gap"] is None
                or d["base_gap"] > SPEC_GAP]
         if bad:
-            raise AssertionError(f"{path}: diverges from spec/base beyond a "
-                                 f"near-tie (gap > {SPEC_GAP}): {bad}")
+            raise AssertionError(f"{path}: diverges from {base_path} beyond "
+                                 f"a near-tie (gap > {SPEC_GAP}): {bad}")
 
 
 def dense_cache_bytes(engine, rows: int) -> int:
@@ -1601,8 +1910,9 @@ def dense_cache_bytes(engine, rows: int) -> int:
     return sum(t.numel() * t.element_size() for t in cache.values())
 
 
-def serve_runs() -> dict:
-    """Drive the serve entry point once per path.  Launch counts are reset
+def serve_runs(paths: dict | None = None) -> dict:
+    """Drive the serve entry point once per path of ``paths`` (default
+    ``SERVE_PATHS``).  Launch counts are reset
     just before and read just after each run, and kept per run, with the
     engine's prefill calls and decode steps recorded on their own (by
     wrapping ``DecodeEngine.prefill`` and ``DecodeEngine._step_core``,
@@ -1624,11 +1934,13 @@ def serve_runs() -> dict:
     (``DecodeEngine.spec_verify``, wrapped to record each round's B, W
     and prefix width); the target's snapshot steps inside a self-draft
     round count as draft steps, not decode steps, and the dense drafter's
-    steps are counted apart (they launch no kernel).  The spec/base run
-    keeps each row's top-``TOPK`` logits per step for ``spec_parity``.
+    steps are counted apart (they launch no kernel).  The paths of
+    ``GREEDY_PATHS`` serve through ``greedy_serve``; those of
+    ``TOKEN_PATHS`` keep their tokens and those of ``TOP_PATHS`` each
+    row's top-``TOPK`` logits per step, for ``spec_parity``.
     Returns ({path: {"counts": {wrapper: n}, "shapes": {(M, K, N): n},
-    "kv_shapes": {(mode, R): n}, "kv_geom": (Hkv, D)}}, {spec path:
-    {"tokens", "top"}})."""
+    "kv_shapes": {(mode, R): n}, "kv_geom": (Hkv, D), "metrics": {...}}},
+    {token path: {"tokens", "top"}, "eos_id": id})."""
     import numpy as np
     import torch
 
@@ -1648,7 +1960,8 @@ def serve_runs() -> dict:
     orig_verify = DecodeEngine.spec_verify
     orig_round = ContinuousScheduler._spec_step
     orig_sched_run = ContinuousScheduler.run
-    for path, (kv_quant, impl, args, n_req, n_samp) in SERVE_PATHS.items():
+    for path, (kv_quant, impl, args, n_req, n_samp) in (
+            SERVE_PATHS if paths is None else paths).items():
         prefills = []  # (batch, padded width, partial?) per engine prefill
         steps = []     # (rows, seconds to the step's end) per decode step
         live = []      # rows each decode step advances (device scalars)
@@ -1682,7 +1995,7 @@ def serve_runs() -> dict:
             steps.append((int(state.done.shape[0]),
                           time.perf_counter() - t0))
             live.append((~state.done).sum())
-            if path == "spec/base":
+            if path in TOP_PATHS:
                 t = torch.topk(state.pending_logits, TOPK, dim=-1)
                 keys = {i: (s.req.req_id, s.sample_idx, len(s.tokens))
                         for i, s in enumerate(scheds[-1].slots)
@@ -1746,7 +2059,8 @@ def serve_runs() -> dict:
             torch.cuda.reset_peak_memory_stats()
             ops.reset_launch_counts()
             t0 = time.perf_counter()
-            rows = (greedy_serve if path == "spec/base" else serve.main)(args)
+            rows = (greedy_serve if path in GREEDY_PATHS
+                    else serve.main)(args)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             counts = ops.launch_counts()
@@ -1851,7 +2165,7 @@ def serve_runs() -> dict:
         runs[path] = {"counts": counts, "shapes": shapes,
                       "kv_shapes": kv_shapes,
                       "kv_geom": (cfg.n_kv_heads, cfg.resolved_head_dim())}
-        if path in SPEC_PATHS:
+        if path in TOKEN_PATHS:
             spec[path] = {"tokens": {
                 (smp.req_id, smp.sample_idx): list(smp.tokens)
                 for smps in scheds[-1].completed.values() for smp in smps}}
@@ -1869,6 +2183,10 @@ def serve_runs() -> dict:
             sum(c for c, _ in rounds)
         step_s = np.array([dt for _, dt in steps] + [dt for _, dt in rounds])
         p50, p99 = (float(np.percentile(step_s, q)) for q in (50, 99))
+        runs[path]["metrics"] = {
+            "decode_tok_per_s": decode / wall_s if wall_s > 0 else 0.0,
+            "step_time_p50_ms": p50 * 1e3, "step_time_p99_ms": p99 * 1e3,
+            "steps": len(steps), "prefill_calls": len(prefills)}
         emit("serve", path=path, arch=cfg.name, kv_quant=kv_quant, impl=impl,
              method=row["method"],
              route="scheduler" if s is not None else "direct",
@@ -3951,12 +4269,45 @@ def kernel_rows(results: list, runs: dict, phases: dict) -> list:
     return kernels
 
 
+def pin_autotune_cache() -> str:
+    """Point ``REPRO_AUTOTUNE_CACHE`` at a fresh empty cache file in a
+    temporary directory under ``build/`` (the wrappers then launch their
+    analytic choices, whatever ``runs/autotune.json`` the machine holds);
+    returns the directory."""
+    import os
+    import tempfile
+
+    from repro_torch.kernels import autotune as AT
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="autotune-pinned-", dir=ROOT / "build")
+    path = os.path.join(tmp, "autotune.json")
+    with open(path, "w") as f:
+        json.dump({"version": 1, "entries": {}}, f)
+    os.environ["REPRO_AUTOTUNE_CACHE"] = path
+    os.environ.pop("REPRO_AUTOTUNE", None)
+    AT.reset()
+    return tmp
+
+
 def main() -> int:
+    import shutil
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    pinned = pin_autotune_cache()
+    try:
+        return _main()
+    finally:
+        shutil.rmtree(pinned, ignore_errors=True)
+
+
+def _main() -> int:
+    import torch
+
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4010,6 +4361,7 @@ def main() -> int:
     check_dequant_kv_kernel(results, kv_r)
     phases = {"flash": flash_phase(results),
               "quantize": quantize_phase(results)}
+    autotune_phase()
     profile_decode()
     profile_decode(MOE_ARGS)
     profile_decode(SSM_ARGS, kv=())

@@ -16,8 +16,9 @@ at ``chip_smoke.FLASH_CASES``' three full-width cases in each exp mode
 (and, where the tree has the override, lut mode with the table forced
 into shared memory and forced through the cache) and the KV dequant (K4)
 at R 1792 (q8) and 12544 (q4).  Prints one JSON line per variant with the
-four times and the mean new/base ratio (a variant only the new tree has:
-its two times).
+four device times and the mean new/base ratio (a variant only the new
+tree has: its two times), then one per variant with a host time per call
+(``call_ms``) the same way.
 """
 from __future__ import annotations
 
@@ -88,18 +89,22 @@ for kind in (() if {flash!r} else ("fp", "q8", "q4")):
 if {gemm!r}:
     c.check_gemm_kernel(rows, gemm)
 print("ROWS " + json.dumps({{r["name"]: r["ms"] for r in rows}}))
+print("CALLS " + json.dumps({{r["name"]: r["call_ms"] for r in rows
+                             if r.get("call_ms") is not None}}))
 """
 
 
-def run(tree: Path, gemm: bool, flash: bool) -> dict:
+def run(tree: Path, gemm: bool, flash: bool) -> tuple:
+    """({name: device ms}, {name: host call ms}) of one tree's run."""
     out = subprocess.run(
         [sys.executable, "-c",
          PHASE.format(root=str(tree), gemm=gemm, flash=flash)],
         cwd=tree, capture_output=True, text=True)
     if out.returncode != 0:
         raise RuntimeError(f"{tree}: exit {out.returncode}\n{out.stderr}")
-    line = next(l for l in out.stdout.splitlines() if l.startswith("ROWS "))
-    return json.loads(line[5:])
+    lines = out.stdout.splitlines()
+    return tuple(json.loads(next(l for l in lines if l.startswith(tag))
+                            [len(tag):]) for tag in ("ROWS ", "CALLS "))
 
 
 def main() -> int:
@@ -115,16 +120,18 @@ def main() -> int:
                          "rows")
     args = ap.parse_args()
     trees = [args.base, args.new, args.new, args.base]
-    times = [run(t.resolve(), args.gemm, args.flash) for t in trees]
-    for name in times[1]:
-        n1, n2 = times[1][name], times[2][name]
-        if name not in times[0]:
-            print(json.dumps({"name": name, "new_ms": [n1, n2]}))
-            continue
-        b1, b2 = times[0][name], times[3][name]
-        print(json.dumps({"name": name, "base_ms": [b1, b2],
-                          "new_ms": [n1, n2],
-                          "new_over_base": (n1 + n2) / (b1 + b2)}))
+    out = [run(t.resolve(), args.gemm, args.flash) for t in trees]
+    for kind, i in (("ms", 0), ("call_ms", 1)):
+        times = [o[i] for o in out]
+        for name in times[1]:
+            n1, n2 = times[1][name], times[2][name]
+            if name not in times[0]:
+                print(json.dumps({"name": name, f"new_{kind}": [n1, n2]}))
+                continue
+            b1, b2 = times[0][name], times[3][name]
+            print(json.dumps({"name": name, f"base_{kind}": [b1, b2],
+                              f"new_{kind}": [n1, n2],
+                              "new_over_base": (n1 + n2) / (b1 + b2)}))
     return 0
 
 

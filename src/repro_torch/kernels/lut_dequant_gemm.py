@@ -10,7 +10,9 @@ or raises; for ``meta`` tensors (the dry-run) it checks the operands as
 for CUDA and returns an empty output of the kernel's shape and dtype.
 :func:`plan` picks the kernel from the dtype, the geometry and
 M alone: the tensor-core kernel in its small-M (M <= ``SMALL_M``) or
-large-M tiling for bf16/f16 x, the CUDA-core kernel for f32 x.
+large-M tiling for bf16/f16 x, the CUDA-core kernel for f32 x.  The
+wrapper launches ``autotune.gemm_plan``: a split of K measured on this
+card where one is recorded, else :func:`plan`.
 ``lut_dequant_gemm.launches`` counts kernel launches, and
 ``lut_dequant_gemm.shapes`` counts them by (M, K, N).
 """
@@ -22,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import autotune, build, ref
 
 plain_lut_dequant_gemm = ref.dequant_matmul_ref
 
@@ -135,20 +137,31 @@ def lut_dequant_gemm(x, codes, scales, codebook, *, scheme: str = "tile",
     if M == 0 or x.device.type == "meta":
         return out
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, codes, scales))
-    pl = plan(M, K, N, x.dtype, scheme, g, aligned)
+    _launch(x, codes, scales, codebook, out,
+            autotune.gemm_plan(M, K, N, x.dtype, scheme, g, aligned),
+            scheme=scheme, group_size=g)
+    return out
+
+
+def _launch(x, codes, scales, codebook, out, pl: Plan, *,
+            scheme: str = "tile", group_size: int = 32) -> None:
+    """Launch the kernel as ``pl`` says on checked CUDA operands, into
+    ``out``; the tuner and the timing sweep reach every candidate launch
+    through here."""
+    M, K = x.shape
+    N = out.shape[1]
     with torch.cuda.device(x.device):
         err = _lib().lut_dequant_gemm_launch(
             _DTYPES[x.dtype], int(scheme == "tile"), _REGIMES[pl.regime],
             pl.mt, pl.wk, pl.kz,
             x.data_ptr(), codes.data_ptr(), scales.data_ptr(),
-            codebook.data_ptr(), out.data_ptr(), M, K, N, g,
+            codebook.data_ptr(), out.data_ptr(), M, K, N, group_size,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lut_dequant_gemm kernel launch failed with CUDA "
                            f"error {err}")
     lut_dequant_gemm.launches += 1
     lut_dequant_gemm.shapes[M, K, N] += 1
-    return out
 
 
 lut_dequant_gemm.launches = 0

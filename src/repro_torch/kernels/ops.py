@@ -199,8 +199,10 @@ def flash_attention(q, k, v, *, causal: bool = True, exp_mode: str = "lut",
     """LUT-softmax FlashAttention (Alg. 1) with GQA.
 
     q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D), any fp dtype, computed in
-    fp16.  Blocks are ``pick_block(Sq, bq)`` and ``pick_block(Skv, bkv)``;
-    query head h reads KV head h // (Hq // Hkv).  Returns (B, Sq, Hq, D)
+    fp16.  Blocks are ``autotune.attn_blocks`` at targets ``bq`` and
+    ``bkv``: a measured entry of this card, else ``pick_block(Sq, bq)``
+    and ``pick_block(Skv, bkv)``; query head h reads KV head
+    h // (Hq // Hkv).  Returns (B, Sq, Hq, D)
     in q.dtype."""
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
@@ -214,11 +216,12 @@ def flash_attention(q, k, v, *, causal: bool = True, exp_mode: str = "lut",
         return x.transpose(1, 2).reshape(B * H, S, D).to(
             torch.float16).contiguous()
 
+    bq, bkv = _autotune.attn_blocks(B * Hq, Sq, Skv, D, bq_target=bq,
+                                    bkv_target=bkv)
     o = _attn.lut_softmax_attention(
         heads_first(q, Sq, Hq), heads_first(k, Skv, Hkv),
         heads_first(v, Skv, Hkv), exp_lut(q.device), causal=causal,
-        bq=_autotune.pick_block(Sq, bq), bkv=_autotune.pick_block(Skv, bkv),
-        exp_mode=exp_mode, kv_group=Hq // Hkv)
+        bq=bq, bkv=bkv, exp_mode=exp_mode, kv_group=Hq // Hkv)
     return o.reshape(B, Hq, Sq, D).transpose(1, 2).to(q.dtype)
 
 

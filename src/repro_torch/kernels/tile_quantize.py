@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import autotune, build, ref
 
 plain_tile_quantize = ref.tile_quantize_ref
 
@@ -63,11 +63,13 @@ def tile_quantize(w: torch.Tensor, *, group_size: int = 32):
     if group_size != 32:
         raise ValueError(f"the CUDA kernel takes group_size 32, got "
                          f"{group_size}")
-    return _launch(w, wide_loads(w))
+    return _launch(w, autotune.quantize_wide(K, N, w.dtype))
 
 
 def wide_loads(w: torch.Tensor) -> bool:
-    """Whether the kernel loads ``w`` through 256-byte L2 fetches."""
+    """Whether the kernel loads ``w`` through 256-byte L2 fetches, by
+    size: the analytic choice of ``autotune.quantize_wide``, which the
+    wrapper launches unless this card has a measured entry."""
     return w.numel() * w.element_size() >= WIDE_BYTES
 
 
