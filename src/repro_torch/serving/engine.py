@@ -72,7 +72,8 @@ from repro_torch.serving.kv_pool import KVPool, OutOfBlocks, blocks_for
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.profiling import NULL_PROFILE_METRICS
 from repro_torch.serving.sampler import SamplerConfig, logprobs_of, sample
-from repro_torch.serving.telemetry import RequestLatency, Tracer, percentile
+from repro_torch.serving.telemetry import (RequestLatency, Tracer, cuda_mark,
+                                           percentile)
 
 
 @dataclass
@@ -326,9 +327,13 @@ class DecodeEngine:
         # gather only the columns some row has cached (the batch max)
         prefix_w = max(1, int(-(-int(cach_h.max()) // bs)))
         cache = self._paged_handle(table)
+        tr = self.tracer
+        t0 = tr.now() if tr is not None else 0.0
         prefix = self._gather_prefix(cache["table"],
                                      self._vec(cach_h, torch.int32),
                                      prefix_w=prefix_w)
+        if tr is not None:
+            tr.span("gather", t0, prefix_w=prefix_w)
         logits = self.model.prefill(self.params, tokens, self.cfg,
                                     lengths=self._vec(lens_h, torch.int32),
                                     paged=cache, prefix=prefix)
@@ -563,7 +568,7 @@ class DecodeEngine:
     # -- decode -------------------------------------------------------------
     def step(self, state: GenState, generator: Optional[torch.Generator],
              sc: SamplerConfig = SamplerConfig(), stop_ids: tuple = (),
-             row_stops=None, canary: bool = False):
+             row_stops=None, canary: bool = False, trace_core: bool = True):
         """One decode step.  Returns (new_state, sampled tokens (B,)).
 
         ``row_stops`` (B,) adds one stop id per row on top of the shared
@@ -577,7 +582,8 @@ class DecodeEngine:
         ``canary=True`` (paged only) first runs the same step through the
         exact path (:meth:`_canary_step`) and keeps its logits in
         :attr:`last_canary_logits` for the scheduler's drift
-        comparison."""
+        comparison.  ``trace_core=False`` records no ``sample`` or
+        ``forward`` span (a speculative round's self-draft steps)."""
         tr = self.tracer
         if tr is not None:
             t0 = tr.now()
@@ -590,7 +596,8 @@ class DecodeEngine:
                 state, generator, sc, stop_ids, row_stops)
         prof = self.profiler
         pt0 = prof.phase_begin("decode") if prof is not None else 0.0
-        st, tok = self._step_core(state, generator, sc, stop_ids, row_stops)
+        st, tok = self._step_core(state, generator, sc, stop_ids, row_stops,
+                                  trace_core=trace_core)
         if prof is not None:
             prof.phase_end("decode", pt0, outputs=(tok, st.pending_logits))
         return st, tok
@@ -629,7 +636,7 @@ class DecodeEngine:
         try:
             with rng:
                 st, _tok = self._step_core(state, gen, sc, stop_ids,
-                                           row_stops)
+                                           row_stops, trace_core=False)
         finally:
             ops.set_op_hook(prev_hook)
             layers.set_paged_attention_impl(prev)
@@ -665,9 +672,14 @@ class DecodeEngine:
         return [float(e) for e in per_layer.cpu()]
 
     def _step_core(self, state: GenState, generator, sc: SamplerConfig,
-                   stop_ids: tuple, row_stops=None):
-        """Sample, stop and decode one step over already planned blocks."""
+                   stop_ids: tuple, row_stops=None, trace_core: bool = True):
+        """Sample, stop and decode one step over already planned blocks.
+        With a tracer and ``trace_core``, a ``sample`` span (its device
+        time timed on a CUDA engine) and a ``forward`` span."""
         stop_ids = tuple(stop_ids) or (self.eos_id,)
+        tr = self.tracer if trace_core else None
+        if tr is not None:
+            t0, ev0 = tr.now(), cuda_mark(self.device)
         tok = sample(state.pending_logits, generator, sc)
         lp = logprobs_of(state.pending_logits, tok)
         tok = torch.where(state.done, self.pad_id, tok).to(torch.int32)
@@ -683,8 +695,15 @@ class DecodeEngine:
         # offset (usable sequence length is max_len - 1)
         model_len = torch.where(state.done, self.max_len, new_len).to(
             torch.int32)
+        if tr is not None:
+            ev1 = cuda_mark(self.device)
+            sp = tr.span("sample", t0)
+            if ev0 is not None:
+                tr.time_on_device(sp, ev0, ev1)
         logits = self._decode(tok, self._cache(state), model_len,
                               state.done)
+        if tr is not None:
+            tr.span("forward", sp.t1)
         # done rows keep the logits that followed their stop token, so
         # resume() continues from them
         pending = torch.where(state.done[:, None], state.pending_logits,
@@ -720,7 +739,8 @@ class DecodeEngine:
         state = self.prepare_decode(state, n_steps)
         toks = []
         for _ in range(n_steps):
-            state, tok = self._step_core(state, generator, sc, stop_ids)
+            state, tok = self._step_core(state, generator, sc, stop_ids,
+                                         trace_core=False)
             toks.append(tok)
         if not toks:
             return state, torch.zeros((state.done.shape[0], 0),
@@ -1217,7 +1237,10 @@ class ContinuousScheduler:
 
     ``tracer`` (:class:`~repro_torch.serving.telemetry.Tracer`) records
     the lifecycle events, phase spans and gauges of the JAX package's
-    scheduler, with the same kinds, names and arguments; ``profiler``
+    scheduler, with the same kinds, names and arguments, and the spans
+    inside the step that it lacks (``gather``, ``sample``, ``forward``,
+    ``readback``; each ``step`` span re-anchors the tracer's Unix
+    stamps); ``profiler``
     (:class:`~repro_torch.serving.profiling.KernelProfiler`) attributes
     the kernels' analytic cost per phase, samples phase walls and, on its
     canary steps, holds the decode step against the exact path (a canary
@@ -1905,7 +1928,7 @@ class ContinuousScheduler:
                 if frz:
                     snap = eng.freeze_rows(snap, frz)
                 snap, dt = eng.step(snap, generator, sc,
-                                    stop_ids=self.stop_ids)
+                                    stop_ids=self.stop_ids, trace_core=False)
                 dts.append(dt)
             # each row's last proposal comes from its (possibly frozen)
             # pending logits: the distribution after its last draft token
@@ -2051,9 +2074,11 @@ class ContinuousScheduler:
         round (see :class:`ContinuousScheduler`)."""
         tr = self.tracer
         prof = self.profiler
-        t_wall = self._clock()
         if tr is not None:
-            t_step = tr.now()
+            # the tracer's clock is the step wall's
+            t_wall = t_step = tr.anchor()
+        else:
+            t_wall = self._clock()
         if prof is not None:
             prof.begin_step()
         admitted, prefill_tokens = self._admit()
@@ -2091,6 +2116,8 @@ class ContinuousScheduler:
                 live = [i for i, s in enumerate(self.slots) if s is not None]
         if canary and self.engine.last_canary_logits is not None:
             self._record_canary(live)
+        if tr is not None:
+            t_rb = tr.now()
         if spec_out is not None:
             xs_h, a_h = spec_out
             toks_h = xs_h[:, 0]  # beam tracking sees the stepwise token
@@ -2102,9 +2129,15 @@ class ContinuousScheduler:
                                       self.state.logprob_sum,
                                       self.state.n_gen))
         if tr is not None:
+            t_end = None
+            if spec_out is None:
+                # the host waits here for the card's rest of the step
+                t_end = tr.span("readback", t_rb, step=self.step_count).t1
+                tr.resolve_device()
             # closes after the copies to the host above (a device sync),
             # so the span is this decode step's host-visible latency
-            tr.span("decode", t_dec, step=self.step_count, batch=len(live))
+            tr.span("decode", t_dec, step=self.step_count, t1=t_end,
+                    batch=len(live))
             seen: set = set()
             for i in live:
                 rid = self.slots[i].req.req_id

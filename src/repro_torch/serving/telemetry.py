@@ -1,6 +1,7 @@
 """Request-lifecycle tracing and tail-latency derivation for the serving
-stack (the JAX package's ``serving/telemetry``, copied: it imports only
-numpy).
+stack (the JAX package's ``serving/telemetry``, extended with spans
+inside the decode step, stamps on the device trace's clock and the
+sampler's device time).
 
 Every stage of a request's life is observable without touching the hot
 path when disabled:
@@ -9,11 +10,24 @@ path when disabled:
   lifecycle events** (``enqueue -> admit[cache hit / lease width] ->
   first_token -> per-step token -> freeze/resume -> beam_boundary ->
   preempt/readmit -> release``), **phase spans** inside the scheduler and
-  engine (``step ⊃ {admit ⊃ prefill, decode ⊃ {plan, spec_verify}, prm}``
-  — admission planning, prefill calls, the decode step, the paged
-  CoW/alloc host planning, the speculative verify forward, PRM score
-  callbacks) and **per-step gauges** (free pool blocks, prefix-cache
-  pinned blocks, slot occupancy).
+  engine and **per-step gauges** (free pool blocks, prefix-cache pinned
+  blocks, slot occupancy).  The spans nest as::
+
+      step ⊃ {admit ⊃ prefill ⊃ gather,
+              decode ⊃ {plan, sample, forward, readback, spec_verify},
+              prm}
+
+  ``admit`` is admission with its prefill calls; ``gather`` a cached
+  prefill's read of the cached blocks (``_gather_prefix``, K4 on a
+  quantized pool); ``plan`` the paged CoW/alloc host planning;
+  ``sample`` the sampler (``sample`` + ``logprobs_of``) and the stop and
+  length bookkeeping before the model call; ``forward`` the model's
+  decode step; ``readback`` the copies of the step's tokens, done flags,
+  logprobs and counts to the host, where the host waits for the card;
+  ``spec_verify`` a speculative round's verify forward; ``prm`` the PRM
+  score callbacks.  ``sample``, ``forward`` and ``readback`` belong to a
+  plain decode step: the canary's exact-path replica and a speculative
+  round's self-draft steps record none.
 * :meth:`Tracer.request_latency` — derives one
   :class:`RequestLatency` record per request from the event stream:
   queue wait (enqueue -> first admit), TTFT (enqueue -> first token),
@@ -36,14 +50,34 @@ derivations are exact; the scheduler uses the same clock for its per-step
 ``wall_s``, so ``step_time_*`` percentiles are deterministic under an
 injected clock too.  Spans measure *host-side* time.  PyTorch runs
 eagerly, so a span holds the host's dispatch of every op inside it; the
-decode span closes after the scheduler copies the step's tokens to the
-host (a device sync), so it reflects the real step latency, while the
-prefill span closes when its last op is queued (CUDA is asynchronous; the
-next sync absorbs the device tail).
+``readback`` span (and the ``decode`` span around it) closes after the
+copies to the host (a device sync), while the prefill span closes when
+its last op is queued (CUDA is asynchronous; the next sync absorbs the
+device tail).
+
+**The device trace's clock.**  Each span also carries ``u0`` / ``u1``,
+its ends in seconds on the Unix clock (``unix_clock``, default
+``time.time_ns``, injectable like ``clock``), the clock
+``torch.profiler`` stamps device activity with.  They come from an
+anchor pair (tracer time, Unix time), the tightest of
+``ANCHOR_READS`` back-to-back reads, taken at construction and again by
+:meth:`Tracer.anchor` when each ``step`` span opens, so drift between
+the two clocks stays within one step.  A span thereby lines up with a
+device trace by itself.
+
+**Device time.**  On a CUDA engine the ``sample`` span's
+``args["device_s"]`` is the card's time between two CUDA events recorded
+on the current stream when the span opens and when it closes (idle gaps
+on the stream between them included): the sampler's time on the card.
+The events are read by :meth:`Tracer.resolve_device` once the step's
+``readback`` has synchronised, so timing adds no synchronise of its own.
+On the CPU there is no event and no ``device_s``.
 
 **Zero overhead when disabled.**  The scheduler and engine hold
 ``tracer=None`` by default and guard every touchpoint with ``if tracer
-is not None`` — no events, no allocations, bit-identical outputs.
+is not None`` — no events, no allocations, bit-identical outputs.  No
+``record_function`` or NVTX range is opened: with CUDA activity the
+profiler could project them onto the device timeline as busy time.
 """
 from __future__ import annotations
 
@@ -72,8 +106,12 @@ EVENT_KINDS = (
     "release",        # rows freed; args: rows, reason
 )
 
-SPAN_NAMES = ("step", "admit", "prefill", "decode", "plan", "prm",
-              "spec_verify")
+SPAN_NAMES = ("step", "admit", "prefill", "gather", "decode", "plan",
+              "sample", "forward", "readback", "prm", "spec_verify")
+
+# Unix clock reads per anchor, each between two reads of the tracer's
+# clock; the one with the narrowest bracket wins
+ANCHOR_READS = 3
 
 
 @dataclass
@@ -92,14 +130,16 @@ class Event:
 @dataclass
 class Span:
     """One completed phase span ``[t0, t1]`` on the scheduler's phase
-    timeline (spans nest: ``step`` contains ``admit``/``decode``/``prm``,
-    ``admit`` contains ``prefill``, ``decode`` contains ``plan``)."""
+    timeline (nesting in the module docstring); ``[u0, u1]`` is the same
+    span in Unix seconds, the device trace's clock."""
 
     name: str
     t0: float
     t1: float
     step: int = -1
     args: dict = field(default_factory=dict)
+    u0: float = 0.0
+    u1: float = 0.0
 
 
 @dataclass
@@ -125,8 +165,6 @@ class RequestLatency:
     queue_wait: float            # enqueue -> first admit
     ttft: float                  # enqueue -> first decode token
     gaps: tuple                  # inter-token intervals
-    itl_mean: float
-    itl_p99: float
     preempt_delay: float         # sum of preempt -> readmit waits
     e2e: float                   # enqueue -> last release
 
@@ -140,26 +178,68 @@ def percentile(xs, q: float) -> float:
     return float(np.percentile(np.asarray(xs, np.float64), q))
 
 
+def cuda_mark(device):
+    """A timing event recorded now on ``device``'s current CUDA stream
+    (the ends of a span's ``device_s``), or None off CUDA."""
+    if device.type != "cuda":
+        return None
+    import torch
+
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
 class Tracer:
     """Append-only recorder of events, phase spans and gauges.
 
     ``clock`` is any zero-arg callable returning monotonically
     non-decreasing floats (seconds).  All recorded times are relative to
     the clock's value at construction, so traces start at t=0.
+    ``unix_clock`` returns integer nanoseconds since the Unix epoch (the
+    device trace's clock); spans carry their ends on it as ``u0`` /
+    ``u1``.
     """
 
-    def __init__(self, clock: Callable[[], float] = time.perf_counter):
+    def __init__(self, clock: Callable[[], float] = time.perf_counter,
+                 unix_clock: Callable[[], int] = time.time_ns):
         self.clock = clock
+        self.unix_clock = unix_clock
         self._t0 = clock()
         self.events: list[Event] = []
         self.spans: list[Span] = []
         self.gauges: list[Gauge] = []
         self._by_req: dict[int, list[Event]] = {}
+        # (span, start event, end event) whose device time is not read yet
+        self._on_device: list[tuple] = []
+        self.anchor()
 
     # -- recording -----------------------------------------------------------
     def now(self) -> float:
         """Seconds since the tracer's epoch (monotonic)."""
         return self.clock() - self._t0
+
+    def anchor(self) -> float:
+        """Re-take the (tracer time, Unix time) pair that places spans on
+        the device trace's clock: ``ANCHOR_READS`` Unix reads, each
+        between two reads of the tracer's clock, and of them the one
+        whose two clock reads lie closest, at their midpoint.  Returns
+        the last clock read as :meth:`now` (the scheduler opens each
+        ``step`` span with it)."""
+        a = self.clock()
+        best = None
+        for _ in range(ANCHOR_READS):
+            u = self.unix_clock()
+            b = self.clock()
+            if best is None or b - a < best[0]:
+                best = (b - a, (a + b) / 2 - self._t0, u / 1e9)
+            a = b
+        self._anchor = best[1:]
+        return a - self._t0
+
+    def unix(self, t: float) -> float:
+        """Tracer time ``t`` in Unix seconds, by the latest anchor."""
+        return self._anchor[1] + (t - self._anchor[0])
 
     def event(self, kind: str, req_id: int = -1, step: int = -1,
               **args) -> Event:
@@ -170,21 +250,38 @@ class Tracer:
             self._by_req.setdefault(req_id, []).append(ev)
         return ev
 
-    def span(self, name: str, t0: float, step: int = -1, **args) -> Span:
+    def span(self, name: str, t0: float, step: int = -1, *,
+             t1: Optional[float] = None, **args) -> Span:
         """Record a completed span that started at ``t0`` (a prior
-        :meth:`now` value) and ends now."""
-        sp = Span(name=name, t0=t0, t1=self.now(), step=step, args=args)
+        :meth:`now` value) and ends at ``t1``, by default now."""
+        t1 = self.now() if t1 is None else t1
+        sp = Span(name=name, t0=t0, t1=t1, step=step, args=args,
+                  u0=self.unix(t0), u1=self.unix(t1))
         self.spans.append(sp)
         return sp
+
+    def time_on_device(self, sp: Span, start, end) -> None:
+        """Give ``sp`` the device time between two recorded events (see
+        :func:`cuda_mark`) as ``args["device_s"]``, read by the next
+        :meth:`resolve_device` after the card has passed ``end``."""
+        self._on_device.append((sp, start, end))
+
+    def resolve_device(self) -> None:
+        """Read the device time of every span whose end event the card has
+        passed (``query`` does not synchronise); the rest wait."""
+        left = []
+        for sp, start, end in self._on_device:
+            if end.query():
+                sp.args["device_s"] = start.elapsed_time(end) / 1e3
+            else:
+                left.append((sp, start, end))
+        self._on_device = left
 
     def gauge(self, name: str, value) -> None:
         self.gauges.append(Gauge(name=name, t=self.now(),
                                  value=float(value)))
 
     # -- derivation ----------------------------------------------------------
-    def request_events(self, req_id: int) -> list[Event]:
-        return list(self._by_req.get(req_id, ()))
-
     def request_latency(self, req_id: int) -> RequestLatency:
         """Derive the request's latency record from its events.  Requires
         at least an ``enqueue``; missing downstream events yield 0.0 for
@@ -221,8 +318,6 @@ class Tracer:
             queue_wait=(t_admit - t_enq) if t_admit is not None else 0.0,
             ttft=(t_first - t_enq) if t_first is not None else 0.0,
             gaps=gaps,
-            itl_mean=(sum(gaps) / len(gaps)) if gaps else 0.0,
-            itl_p99=percentile(gaps, 99),
             preempt_delay=preempt_delay,
             e2e=(t_rel - t_enq) if t_rel is not None else 0.0,
         )

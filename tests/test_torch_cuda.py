@@ -754,3 +754,72 @@ def test_cuda_profiler_hook_and_canary(cuda, kv, monkeypatch):
     assert {impl for impl, c in seen if c} == {L.PLAIN_IMPL}
     assert L.PLAIN_IMPL not in {impl for impl, c in seen if not c}
     assert ops.op_hook() is None
+
+
+def _device_activity(prof):
+    """(name, start s, end s) of each device activity ``torch.profiler``
+    recorded, on its own clock."""
+    def ns(ev, what):
+        f = getattr(ev, f"{what}_ns", None)
+        return float(f()) if f is not None \
+            else float(getattr(ev, f"{what}_us")()) * 1e3
+
+    out = []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            s = ns(ev, "start") * 1e-9
+            out.append((ev.name(), s, s + ns(ev, "duration") * 1e-9))
+    return out
+
+
+@pytest.mark.gpu
+def test_cuda_tracer_spans_on_the_device_clock(cuda):
+    """A span's Unix stamps hold the kernel it waited for on the clock
+    ``torch.profiler`` stamps device activity with (within 50 us, its end
+    under 0.5 ms after the kernel's), and a ``sample``-style span's
+    ``device_s`` is the marked pass's time by CUDA events, within 10%
+    (medians of 5; the span's time includes its launch gaps, so the pass
+    is long: 8 GiB moved, ~2.6 ms)."""
+    from repro_torch.serving.telemetry import Tracer, cuda_mark
+
+    x = torch.ones(1 << 30, device=cuda)
+    torch.cuda._sleep(1000)
+    x.mul_(1.0)
+    torch.cuda.synchronize()
+    bare = []
+    for _ in range(5):
+        a = cuda_mark(cuda)
+        x.mul_(1.0)
+        b = cuda_mark(cuda)
+        b.synchronize()
+        bare.append(a.elapsed_time(b) / 1e3)
+    tr = Tracer()
+    marked = []
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = tr.anchor()
+        torch.cuda._sleep(4_000_000)             # ~2 ms at ~2 GHz
+        torch.cuda.synchronize()
+        probe = tr.span("probe", t0)
+        for _ in range(5):
+            t0, e0 = tr.now(), cuda_mark(cuda)
+            x.mul_(1.0)
+            marked.append(tr.span("sample", t0))
+            tr.time_on_device(marked[-1], e0, cuda_mark(cuda))
+            torch.cuda.synchronize()
+            tr.resolve_device()
+    acts = _device_activity(prof)
+    spins = [a for a in acts if "spin" in a[0] or "sleep" in a[0]]
+    assert len(spins) == 1, [a[0] for a in acts]
+    _, k0, k1 = spins[0]
+    device_s = [sp.args["device_s"] for sp in marked]
+    passes = [1e3 * (e - s) for n, s, e in acts if "spin" not in n]
+    print(f"spin kernel {1e3 * (k1 - k0):.4f} ms; kernel start - u0 "
+          f"{1e6 * (k0 - probe.u0):.1f} us, u1 - kernel end "
+          f"{1e6 * (probe.u1 - k1):.1f} us; sample device_s ms "
+          f"{[round(1e3 * d, 4) for d in device_s]}, bare events ms "
+          f"{[round(1e3 * b, 4) for b in bare]}, profiled passes ms "
+          f"{[round(p, 4) for p in passes]}")
+    assert probe.u0 - 50e-6 <= k0 and k1 <= probe.u1 + 50e-6
+    assert probe.u1 - k1 < 0.5e-3
+    assert sorted(device_s)[2] == pytest.approx(sorted(bare)[2], rel=0.1)

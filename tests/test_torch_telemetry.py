@@ -8,9 +8,12 @@ scheduler and the JAX scheduler serve one workload from the same random
 ``tiny_cfg`` weights (a beam tree, plain requests and a Best-of-N group
 on a starved pool, so the youngest request is preempted): their
 ``(kind, req_id, step)`` event sequences (with each event's arguments)
-and ``(name, step)`` span sequences are equal, the port's trace passes
-both packages' validators, ``summary()`` has the JAX package's key set,
-and ``tracer=None`` leaves the tokens bit-identical.  Last, the
+and ``(name, step)`` span sequences (the port's filtered to the JAX
+package's span names) are equal, the port's trace passes both packages'
+validators, ``summary()`` has the JAX package's key set, and
+``tracer=None`` leaves the tokens bit-identical.  The spans the port
+adds inside the step (``sample``, ``forward``, ``readback``,
+``gather``) and their Unix stamps are checked on their own.  Last, the
 speculative rounds' telemetry (``tests/test_spec_decode.py``'s
 ``test_spec_telemetry_and_profiler_threading``) on both packages."""
 import itertools
@@ -126,7 +129,7 @@ def test_tracer_unit(case, tmp_path, capsys):
         tr, jtr = _scripted(PT), _scripted(JT)
         r0 = tr.request_latency(0)
         assert r0.queue_wait == 1.0 and r0.ttft == 2.0
-        assert r0.gaps == (2.0, 3.0) and r0.itl_mean == 2.5
+        assert r0.gaps == (2.0, 3.0)
         assert r0.preempt_delay == 0.0 and r0.e2e == 8.0
         r1 = tr.request_latency(1)
         assert r1.queue_wait == 0.5 and r1.ttft == 1.5
@@ -137,8 +140,10 @@ def test_tracer_unit(case, tmp_path, capsys):
         with pytest.raises(ValueError, match="no events"):
             tr.request_latency(99)
         for rid in range(3):
-            assert tr.request_latency(rid).__dict__ == \
-                jtr.request_latency(rid).__dict__
+            lat, jlat = tr.request_latency(rid), jtr.request_latency(rid)
+            # the JAX record's fields the port keeps
+            assert lat.__dict__ == {k: getattr(jlat, k)
+                                    for k in lat.__dict__}
         trace = tr.to_chrome_trace()
         assert trace == jtr.to_chrome_trace()
         assert validate_chrome_trace(trace) == []
@@ -233,8 +238,9 @@ def _events(tr):
             for e in tr.events]
 
 
-def _spans(tr):
-    return [(s.name, s.step) for s in tr.spans]
+def _spans(tr, names=None):
+    return [(s.name, s.step) for s in tr.spans
+            if names is None or s.name in names]
 
 
 def test_scheduler_trace_matches_reference(weights, tiny_cfg, tok):
@@ -252,7 +258,8 @@ def test_scheduler_trace_matches_reference(weights, tiny_cfg, tok):
                      "freeze", "resume", "beam_boundary", "preempt",
                      "release"}
     assert _events(tr) == _events(jtr)
-    assert _spans(tr) == _spans(jtr)
+    # the port's spans inside the step are its own (checked below)
+    assert _spans(tr, JT.SPAN_NAMES) == _spans(jtr)
     assert [g.name for g in tr.gauges] == [g.name for g in jtr.gauges]
     # gauges that count, not time, agree in value too
     counted = ("occupancy", "free_blocks")
@@ -331,8 +338,203 @@ def test_spec_telemetry_and_profiler_threading(weights, tiny_cfg, tok):
         assert len(gauges) == s["spec_rounds"] and sum(gauges) > 0
         phases = prof.report()["phases"]
         assert phases["spec_verify"]["calls"] == s["spec_rounds"]
-        out.append((res, s["spec_rounds"], gauges, _spans(tracer)))
+        # a round that falls back to a plain step also records the
+        # port's spans inside the step, which the JAX package lacks
+        out.append((res, s["spec_rounds"], gauges,
+                    _spans(tracer, JT.SPAN_NAMES + ("spec_verify",))))
         if not ref:
             assert validate_chrome_trace(tracer.to_chrome_trace()) == []
             assert teng.pool.blocks_in_use == 0
     assert out[0] == out[1]
+
+
+# ---------------------------------------------------------------------------
+# The port's spans inside the step, on the device trace's clock
+# ---------------------------------------------------------------------------
+
+STEP_SPANS = ("plan", "sample", "forward", "readback")
+
+
+class LockstepClocks:
+    """A tick clock of binary-exact ticks, and a Unix clock a second
+    further on at each of its reads: each anchor takes reads of its own,
+    so a span's stamps show which anchor placed it, exactly."""
+
+    TICK = 2.0 ** -10
+    BASE_NS = 1000 * 10 ** 9
+
+    def __init__(self):
+        self.n = 0
+        self.unix_reads = 0
+
+    def clock(self):
+        self.n += 1
+        return self.n * self.TICK
+
+    def unix(self):
+        self.unix_reads += 1
+        return self.BASE_NS + self.unix_reads * 10 ** 9
+
+
+def _port_engine(weights, tiny_cfg, tok, n_blocks):
+    return DecodeEngine(weights[1], _torch_cfg(tiny_cfg), max_len=64,
+                        eos_id=tok.eos_id, pad_id=tok.pad_id, paged=True,
+                        block_size=8, n_blocks=n_blocks)
+
+
+def _inside(sp, outer):
+    return outer.t0 <= sp.t0 and sp.t1 <= outer.t1
+
+
+def _by_parent(tr, parent, names):
+    """{parent span index: [its spans of ``names`` in order]}."""
+    parents = [s for s in tr.spans if s.name == parent]
+    got = {i: [] for i in range(len(parents))}
+    for sp in tr.spans:
+        if sp.name in names:
+            owner = [i for i, p in enumerate(parents) if _inside(sp, p)]
+            assert len(owner) == 1, (sp, owner)
+            got[owner[0]].append(sp)
+    return parents, got
+
+
+def _check_step_spans(tr, n_steps):
+    """One plan, sample, forward and readback span per plain decode
+    step, in that order inside its ``decode``, none overlapping, the
+    forward starting where the sample ends; the trace validates."""
+    decodes, kids = _by_parent(tr, "decode", STEP_SPANS)
+    assert len(decodes) == n_steps
+    for i, dec in enumerate(decodes):
+        names = [sp.name for sp in sorted(kids[i], key=lambda s: s.t0)]
+        assert names == list(STEP_SPANS), names
+        ordered = sorted(kids[i], key=lambda s: s.t0)
+        for a, b in zip(ordered, ordered[1:]):
+            assert a.t1 <= b.t0
+        assert ordered[2].t0 == ordered[1].t1
+        assert ordered[3].step == dec.step
+    # on the CPU no event is recorded, so no span has device time
+    assert not any("device_s" in sp.args for sp in tr.spans)
+    assert validate_chrome_trace(tr.to_chrome_trace()) == []
+
+
+def test_step_spans_nest_and_carry_unix_stamps(weights, tiny_cfg, tok):
+    """The preempting beam + chat + Best-of-N workload: every plain step
+    has its four spans inside ``decode``; no ``gather`` without a cache;
+    every span's ``u0`` / ``u1`` is its ``t0`` / ``t1`` placed by the
+    anchor its step took (one Unix read of its own per step)."""
+    clocks = LockstepClocks()
+    tr = Tracer(clock=clocks.clock, unix_clock=clocks.unix)
+    sched, _ = _workload(_port_engine(weights, tiny_cfg, tok, 10), tok,
+                         ref=False, tracer=tr)
+    _check_step_spans(tr, sched.step_count)
+    assert not any(sp.name == "gather" for sp in tr.spans)
+    steps = [s for s in tr.spans if s.name == "step"]
+    assert [s.step for s in steps] == list(range(sched.step_count))
+    reads, tick = PT.ANCHOR_READS, LockstepClocks.TICK
+    for k, st in enumerate(steps, start=1):
+        # anchor k (0 is the tracer's own) took the first of its reads:
+        # Unix read k * reads + 1, at the middle of its two clock reads,
+        # reads - 0.5 ticks before the step opened
+        u_k = 1000.0 + k * reads + 1
+        c_k = st.t0 - (reads - 0.5) * tick
+        inner = [sp for sp in tr.spans if _inside(sp, st)]
+        assert len(inner) > 1
+        for sp in inner:
+            assert sp.u0 == u_k + (sp.t0 - c_k)
+            assert sp.u1 == u_k + (sp.t1 - c_k)
+    # only the idle call that ends the drain is outside every step
+    outside = [sp for sp in tr.spans
+               if not any(_inside(sp, st) for st in steps)]
+    assert [sp.name for sp in outside] == ["admit"]
+
+
+def test_canary_replica_records_no_step_spans(weights, tiny_cfg, tok):
+    """A canary on every step re-runs the step on the exact path; only
+    the production step records ``sample`` and ``forward``."""
+    teng = _port_engine(weights, tiny_cfg, tok, 48)
+    replicas = []
+    core = teng._canary_step
+
+    def counted(*a, **k):
+        replicas.append(1)
+        return core(*a, **k)
+
+    teng._canary_step = counted
+    tr = Tracer(clock=_counting_clock())
+    prof = KernelProfiler(sample_rate=1.0, canary_rate=1.0)
+    sched = ContinuousScheduler(teng, n_slots=3, prompt_len=PROMPT_LEN,
+                                stop_ids=NO_STOP, tracer=tr, profiler=prof)
+    for i, text in enumerate(("Q:2+7=?A:", "Q:1+1=?A:")):
+        sched.submit(Request(req_id=i, prompt=torch.tensor(
+            tok.encode(text), dtype=torch.int32), max_new_tokens=5,
+            n_samples=1 + i))
+    try:
+        sched.run(None, GREEDY)
+    finally:
+        prof.uninstall()
+    assert len(replicas) == sched.step_count > 0
+    _check_step_spans(tr, sched.step_count)
+
+
+def test_gather_only_on_a_cached_prefill(weights, tiny_cfg, tok):
+    """With the prefix cache, each cached prefill holds one ``gather``
+    span and every other prefill none."""
+    from repro_torch.serving.prefix_cache import PrefixCache
+
+    teng = _port_engine(weights, tiny_cfg, tok, 48)
+    tr = Tracer(clock=_counting_clock())
+    sched = ContinuousScheduler(teng, n_slots=4, prompt_len=40,
+                                stop_ids=NO_STOP, tracer=tr,
+                                prefix_cache=PrefixCache(teng.pool))
+    header = "Shots: 1+1=2. 2+2=4. 3+3=6. "
+    texts = [header + "Q:2+7=?A:", header + "Q:5+1=?A:", "Q:9+9=?A:",
+             header + "Q:4+4=?A:"]
+    for i, text in enumerate(texts):
+        sched.submit(Request(req_id=i, prompt=torch.tensor(
+            tok.encode(text), dtype=torch.int32), max_new_tokens=4,
+            n_samples=2 if i == 3 else 1))
+    sched.run(None, GREEDY)
+    prefills, kids = _by_parent(tr, "prefill", ("gather",))
+    cached = [i for i, p in enumerate(prefills) if p.args["cached"]]
+    assert cached and len(cached) < len(prefills)
+    assert sched.metrics.summary()["prefill_tokens_saved"] > 0
+    for i in range(len(prefills)):
+        assert len(kids[i]) == (1 if i in cached else 0)
+    _check_step_spans(tr, sched.step_count)
+
+
+class _Event:
+    """A stand-in for a CUDA timing event: ``ms`` on the card's clock,
+    passed once ``passed`` is set."""
+
+    def __init__(self, ms, passed=True):
+        self.ms, self.passed = ms, passed
+
+    def query(self):
+        return self.passed
+
+    def elapsed_time(self, end):
+        assert self.passed and end.passed
+        return end.ms - self.ms
+
+
+def test_device_time_waits_for_the_card():
+    """``device_s`` is read only once the end event has passed, and
+    only for the span it was given to."""
+    c = ManualClock()
+    tr = Tracer(clock=c, unix_clock=lambda: 5 * 10 ** 9)
+    a, b = tr.span("sample", 0.0), tr.span("forward", 0.0)
+    late = _Event(10.5, passed=False)
+    tr.time_on_device(a, _Event(2.0), _Event(2.25))
+    tr.time_on_device(b, _Event(4.0), late)
+    tr.resolve_device()
+    assert a.args == {"device_s": 0.25e-3}
+    assert "device_s" not in b.args
+    late.passed = True
+    tr.resolve_device()
+    assert b.args == {"device_s": 6.5e-3}
+    assert a.u0 == a.u1 == 5.0
+    trace = tr.to_chrome_trace()
+    assert validate_chrome_trace(trace) == []
+    assert [e["args"].get("device_s") for e in trace["traceEvents"]
+            if e["ph"] == "X"] == [0.25e-3, 6.5e-3]
