@@ -122,6 +122,32 @@ def reset_launch_counts() -> None:
         fn.shapes.clear()
 
 
+def launch_tally() -> dict:
+    """Every launch counter in one flat dict: {wrapper name: launches}
+    and {(wrapper name, shape): launches}."""
+    out = {name: fn.launches for name, fn in KERNELS.items()}
+    for name, fn in KERNELS.items():
+        if fn in _BY_SHAPE:
+            out.update({(name, shape): n for shape, n in fn.shapes.items()})
+    return out
+
+
+def tally_delta(before: dict, after: dict) -> dict:
+    """The launches counted between two :func:`launch_tally` readings."""
+    delta = {k: n - before.get(k, 0) for k, n in after.items()}
+    return {k: n for k, n in delta.items() if n}
+
+
+def add_launches(delta: dict, times: int = 1) -> None:
+    """Count ``times`` x ``delta`` more launches: a replayed CUDA graph
+    runs kernels no wrapper was called for."""
+    for key, n in delta.items():
+        if isinstance(key, tuple):
+            KERNELS[key[0]].shapes[key[1]] += n * times
+        else:
+            KERNELS[key].launches += n * times
+
+
 def lut_dequant_matmul(x: torch.Tensor, qw: dict, *,
                        group_size: int = 32) -> torch.Tensor:
     """x: (M, K) @ dequant(qw) for a Q4 leaf {"codes", "scales",

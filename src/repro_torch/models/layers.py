@@ -498,6 +498,12 @@ def set_paged_attention_impl(impl: str) -> str:
     return prev
 
 
+def paged_attention_impl() -> str | None:
+    """The selected paged decode attention (None: an unknown name in
+    ``REPRO_TORCH_PAGED_ATTN``, which the first call raises on)."""
+    return _PAGED_ATTN_IMPL
+
+
 def paged_decode_attention(q, k_pool, v_pool, *, table, cache_len,
                            window: int = 0, softcap: float = 0.0):
     """Single-step attention against a paged KV cache.

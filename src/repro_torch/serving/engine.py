@@ -45,7 +45,10 @@ uploaded once per step.  Paged states reference pool blocks by id and
 must be used linearly.  ``prepare_decode`` plans each step's block
 allocation and CoW on the host and raises :class:`~repro_torch.serving.
 kv_pool.OutOfBlocks` atomically when the pool is short, which the
-scheduler turns into preempting the youngest request.
+scheduler turns into preempting the youngest request.  On a card, the
+scheduler's plain decode steps replay the paged forward from one CUDA
+graph per engine (:mod:`~repro_torch.serving.decode_graph`,
+:meth:`DecodeEngine._graph_for`); every other caller runs it eager.
 
 Observability: a :class:`~repro_torch.serving.telemetry.Tracer` records
 the scheduler's request lifecycle events, phase spans and gauges, and a
@@ -68,6 +71,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import api
+from repro_torch.serving.decode_graph import DecodeGraph, pool_pointers
 from repro_torch.serving.kv_pool import KVPool, OutOfBlocks, blocks_for
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.profiling import NULL_PROFILE_METRICS
@@ -127,6 +131,10 @@ class DecodeEngine:
         self.tracer: Optional[Tracer] = None
         self.profiler = None
         self.last_canary_logits: Optional[torch.Tensor] = None
+        # the decode forward's CUDA graph (paged engines on a card): at
+        # most one capture per engine (see _graph_for)
+        self._graph: Optional[DecodeGraph] = None
+        self._graph_warm: Optional[tuple] = None
         if kv_quant != "none" and not paged:
             raise ValueError("kv_quant requires the paged KV layout "
                              "(DecodeEngine(paged=True))")
@@ -257,8 +265,11 @@ class DecodeEngine:
         return self._prefilled_state(table, n_blocks, lengths, logits)
 
     def _paged_handle(self, table: np.ndarray) -> dict:
-        return {"k": self.pool.k, "v": self.pool.v,
-                "table": self._vec(table, torch.int32)}
+        return self._pool_handle(self._vec(table, torch.int32))
+
+    def _pool_handle(self, table: torch.Tensor) -> dict:
+        """The pool with a block table already on the device."""
+        return {"k": self.pool.k, "v": self.pool.v, "table": table}
 
     def _prefilled_state(self, table, n_blocks, cache_len, logits, *,
                          cache=None) -> GenState:
@@ -568,7 +579,8 @@ class DecodeEngine:
     # -- decode -------------------------------------------------------------
     def step(self, state: GenState, generator: Optional[torch.Generator],
              sc: SamplerConfig = SamplerConfig(), stop_ids: tuple = (),
-             row_stops=None, canary: bool = False, trace_core: bool = True):
+             row_stops=None, canary: bool = False, trace_core: bool = True,
+             graph: bool = False):
         """One decode step.  Returns (new_state, sampled tokens (B,)).
 
         ``row_stops`` (B,) adds one stop id per row on top of the shared
@@ -583,7 +595,9 @@ class DecodeEngine:
         exact path (:meth:`_canary_step`) and keeps its logits in
         :attr:`last_canary_logits` for the scheduler's drift
         comparison.  ``trace_core=False`` records no ``sample`` or
-        ``forward`` span (a speculative round's self-draft steps)."""
+        ``forward`` span (a speculative round's self-draft steps).
+        ``graph=True`` (the scheduler's plain step) lets the forward
+        replay the engine's CUDA graph (:meth:`_graph_for`)."""
         tr = self.tracer
         if tr is not None:
             t0 = tr.now()
@@ -597,7 +611,7 @@ class DecodeEngine:
         prof = self.profiler
         pt0 = prof.phase_begin("decode") if prof is not None else 0.0
         st, tok = self._step_core(state, generator, sc, stop_ids, row_stops,
-                                  trace_core=trace_core)
+                                  trace_core=trace_core, graph=graph)
         if prof is not None:
             prof.phase_end("decode", pt0, outputs=(tok, st.pending_logits))
         return st, tok
@@ -672,10 +686,12 @@ class DecodeEngine:
         return [float(e) for e in per_layer.cpu()]
 
     def _step_core(self, state: GenState, generator, sc: SamplerConfig,
-                   stop_ids: tuple, row_stops=None, trace_core: bool = True):
+                   stop_ids: tuple, row_stops=None, trace_core: bool = True,
+                   graph: bool = False):
         """Sample, stop and decode one step over already planned blocks.
         With a tracer and ``trace_core``, a ``sample`` span (its device
-        time timed on a CUDA engine) and a ``forward`` span."""
+        time timed on a CUDA engine) and a ``forward`` span whose
+        ``graph`` arg says whether the forward was replayed."""
         stop_ids = tuple(stop_ids) or (self.eos_id,)
         tr = self.tracer if trace_core else None
         if tr is not None:
@@ -700,12 +716,17 @@ class DecodeEngine:
             sp = tr.span("sample", t0)
             if ev0 is not None:
                 tr.time_on_device(sp, ev0, ev1)
-        logits = self._decode(tok, self._cache(state), model_len,
-                              state.done)
+        g = self._graph_for(state) if graph else None
+        if g is None:
+            logits = self._decode(tok, self._cache(state), model_len,
+                                  state.done)
+        else:
+            logits = g.run(tok, model_len, state.table)
         if tr is not None:
-            tr.span("forward", sp.t1)
+            tr.span("forward", sp.t1, graph=g is not None)
         # done rows keep the logits that followed their stop token, so
-        # resume() continues from them
+        # resume() continues from them (a fresh tensor: a replay's logits
+        # buffer is overwritten by the next one)
         pending = torch.where(state.done[:, None], state.pending_logits,
                               logits.float())
         return GenState(
@@ -715,6 +736,52 @@ class DecodeEngine:
             logprob_sum=state.logprob_sum + torch.where(
                 state.done, torch.zeros_like(lp), lp),
             n_gen=state.n_gen + (~state.done).to(torch.int32)), tok
+
+    def _graph_for(self, state: GenState) -> Optional[DecodeGraph]:
+        """The CUDA graph this step's forward replays, or None to run it
+        eager.  A graph replays only where the engine is paged (so a
+        transformer) on a CUDA device, no ``ops`` hook is installed (the
+        profiler attributes each call), the paged-attention impl is a
+        kernel's, and the step has the captured batch width, impl and
+        pool leaves.  Nothing here reads a knob: the step's shape and the
+        engine's state decide.
+
+        The first such step runs eager (every kernel launches, and
+        builds, once); the next one at the same width and impl captures
+        the graph, once per engine.  After that a step that differs runs
+        eager: it never captures again."""
+        from repro_torch.kernels import ops
+        from repro_torch.models import layers
+
+        if not self.paged or not DecodeGraph.available(self.device) or \
+                ops.op_hook() is not None:
+            return None
+        impl = layers.paged_attention_impl()
+        if impl not in layers.PAGED_ATTN_IMPLS:
+            return None
+        batch = state.table.shape[0]
+        if self._graph is not None:
+            ok = self._graph.matches(batch, impl, pool_pointers(self.pool))
+            return self._graph if ok else None
+        if self._graph_warm != (batch, impl):
+            self._graph_warm = (batch, impl)
+            return None
+        return self._capture(batch, impl)
+
+    def _capture(self, batch: int, impl: str) -> DecodeGraph:
+        """Capture the paged decode forward at ``batch`` rows (a
+        ``capture`` span with a tracer)."""
+        tr = self.tracer
+        t0 = tr.now() if tr is not None else 0.0
+        g = DecodeGraph(batch=batch, width=self.table_width,
+                        device=self.device, impl=impl,
+                        pointers=pool_pointers(self.pool))
+        g.capture(lambda tok, table, model_len: self._decode(
+            tok, self._pool_handle(table), model_len, None))
+        self._graph = g
+        if tr is not None:
+            tr.span("capture", t0, batch=batch, width=self.table_width)
+        return g
 
     def _decode(self, tok, cache: dict, model_len, done) -> torch.Tensor:
         """The model's decode step over ``cache`` in place.  Recurrent
@@ -2108,7 +2175,8 @@ class ContinuousScheduler:
                 if spec_out is None:
                     self.state, toks = self.engine.step(
                         self.state, generator, sc, stop_ids=self.stop_ids,
-                        row_stops=self._row_stops(), canary=canary)
+                        row_stops=self._row_stops(), canary=canary,
+                        graph=True)
                 break
             except OutOfBlocks:
                 # atomic: the failed plan touched neither pool nor state

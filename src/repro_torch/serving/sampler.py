@@ -46,8 +46,11 @@ def sample(logits: torch.Tensor, generator: Optional[torch.Generator],
         x = _mask_top_k(x, sc.top_k)
     if sc.top_p < 1.0:
         x = _mask_top_p(x, sc.top_p)
-    u = torch.rand(x.shape, generator=generator, device=x.device)
-    g = -torch.log(-torch.log(u.clamp(1e-20, 1.0)))
+    # the Gumbel noise computed in place on the draw: one (B, V) buffer
+    # where the out-of-place chain held two more at once (room for the
+    # decode graph's logits buffer, which stays allocated through here)
+    g = torch.rand(x.shape, generator=generator, device=x.device)
+    g.clamp_(1e-20, 1.0).log_().neg_().log_().neg_()
     return torch.argmax(x + g, dim=-1).to(torch.int32)
 
 

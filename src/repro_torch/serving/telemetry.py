@@ -14,7 +14,8 @@ path when disabled:
   blocks, slot occupancy).  The spans nest as::
 
       step ⊃ {admit ⊃ prefill ⊃ gather,
-              decode ⊃ {plan, sample, forward, readback, spec_verify},
+              decode ⊃ {plan, sample, forward ⊃ capture, readback,
+                        spec_verify},
               prm}
 
   ``admit`` is admission with its prefill calls; ``gather`` a cached
@@ -22,7 +23,9 @@ path when disabled:
   quantized pool); ``plan`` the paged CoW/alloc host planning;
   ``sample`` the sampler (``sample`` + ``logprobs_of``) and the stop and
   length bookkeeping before the model call; ``forward`` the model's
-  decode step; ``readback`` the copies of the step's tokens, done flags,
+  decode step (``graph=`` whether replayed from the engine's CUDA
+  graph); ``capture`` that graph's one capture (``batch=``,
+  ``width=``); ``readback`` the copies of the step's tokens, done flags,
   logprobs and counts to the host, where the host waits for the card;
   ``spec_verify`` a speculative round's verify forward; ``prm`` the PRM
   score callbacks.  ``sample``, ``forward`` and ``readback`` belong to a
@@ -107,7 +110,8 @@ EVENT_KINDS = (
 )
 
 SPAN_NAMES = ("step", "admit", "prefill", "gather", "decode", "plan",
-              "sample", "forward", "readback", "prm", "spec_verify")
+              "sample", "forward", "capture", "readback", "prm",
+              "spec_verify")
 
 # Unix clock reads per anchor, each between two reads of the tracer's
 # clock; the one with the narrowest bracket wins

@@ -10,6 +10,7 @@ Without a GPU they skip.
 import pytest
 import torch
 
+from repro_torch.configs.base import MoEConfig
 from repro_torch.kernels import lut_dequant_gemm as G
 from repro_torch.kernels import lut_dequant_kv as K4
 from repro_torch.kernels import lut_softmax_attention as K5
@@ -823,3 +824,106 @@ def test_cuda_tracer_spans_on_the_device_clock(cuda):
     assert probe.u0 - 50e-6 <= k0 and k1 <= probe.u1 + 50e-6
     assert probe.u1 - k1 < 0.5e-3
     assert sorted(device_s)[2] == pytest.approx(sorted(bare)[2], rel=0.1)
+
+
+# ---------------------------------------------------------------------------
+# the decode forward replayed from one CUDA graph
+# ---------------------------------------------------------------------------
+
+GRAPH_CFGS = {
+    # W4A16, bf16 activations: K3 at M = the slots, K2 on a Q8 pool, the
+    # head's bf16 product to f32 logits
+    "w4a16": dict(name="graph", n_layers=2, d_model=64, n_heads=4,
+                  n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=512,
+                  dtype="bfloat16", qkv_bias=True, tie_embeddings=True),
+    # olmoe-1b-7b's smoke shape (Hkv = Hq), W4A16: the routing, the
+    # capacity dispatch and the experts' dequant inside the graph
+    "moe": dict(name="graph-moe", n_layers=2, d_model=64, n_heads=4,
+                n_kv_heads=4, head_dim=16, d_ff=0, vocab_size=512,
+                dtype="bfloat16",
+                moe=MoEConfig(n_experts=8, top_k=2, expert_d_ff=64)),
+    "smoke": None,   # qwen2.5-1.5b's smoke config: f32, unquantized
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", sorted(GRAPH_CFGS))
+def test_cuda_decode_graph_matches_eager(cuda, which, monkeypatch):
+    """20 scheduler steps of Best-of-3 groups (post-fork copy-on-write)
+    and plain requests that finish and are replaced, on a Q8 pool, once
+    with the forward replayed from the engine's graph and once eager: the
+    same tokens, every step's pending logits equal to the bit, the same
+    launch counts; one capture, and each step's pending logits, held by
+    the state, left unchanged by the next step's replay."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as TR
+    from repro_torch.quant.qlinear import cast_params, quantize_model_params
+    from repro_torch.serving import engine as E
+
+    kw = GRAPH_CFGS[which]
+    cfg = ModelConfig(**kw) if kw else get_config("qwen2.5-1.5b",
+                                                  smoke=True)
+    params = TR.init_params(cfg.with_(dtype="float32"), seed=3, device=cuda)
+    if kw:
+        params = cast_params(quantize_model_params(params), torch.bfloat16)
+    gen = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(3, 500, (int(n),), generator=gen,
+                             dtype=torch.int32)
+               for n in torch.randint(5, 30, (12,), generator=gen)]
+
+    def serve(graph):
+        if not graph:
+            monkeypatch.setattr(E.DecodeGraph, "available",
+                                staticmethod(lambda device: False))
+        eng = E.DecodeEngine(params, cfg, max_len=96, paged=True,
+                             block_size=16, n_blocks=1 + 8 * 6,
+                             kv_quant="q8")
+        sched = E.ContinuousScheduler(eng, n_slots=8, prompt_len=32,
+                                      stop_ids=(7,))
+        for i, p in enumerate(prompts):
+            sched.submit(E.Request(req_id=i, prompt=p,
+                                   max_new_tokens=3 + 2 * (i % 5),
+                                   n_samples=3 if i % 4 == 0 else 1))
+        logits, held = [], []
+        core = eng._step_core
+
+        def step_core(state, *a, **k):
+            # the state's pending logits (the last step's, admissions
+            # merged in) as the replay inside this step finds them
+            before = state.pending_logits.clone() \
+                if eng._graph is not None else None
+            st, tok = core(state, *a, **k)
+            if before is not None:
+                held.append(torch.equal(state.pending_logits, before))
+            logits.append(st.pending_logits.clone())
+            return st, tok
+
+        eng._step_core = step_core
+        ops.reset_launch_counts()
+        run = torch.Generator(device=cuda).manual_seed(0)
+        steps = 0
+        while sched.step_once(run, SamplerConfig(temperature=0.8)):
+            steps += 1
+        torch.cuda.synchronize()
+        monkeypatch.undo()
+        return (sched.completed, logits, ops.launch_counts(),
+                ops.gemm_launches_by_shape(), eng, held, steps)
+
+    want = serve(False)
+    got = serve(True)
+    assert want[4]._graph is None
+    eng, held, steps = got[4], got[5], got[6]
+    assert steps >= 16
+    assert eng._graph is not None and eng._graph.replays == steps - 1
+    toks = [{r: sorted((c.sample_idx, c.tokens) for c in cs)
+             for r, cs in run[0].items()} for run in (want, got)]
+    assert toks[0] == toks[1]
+    assert len(want[1]) == len(got[1]) == steps
+    diff = max(float((a - b).abs().max()) for a, b in zip(want[1], got[1]))
+    print(f"{which}: {steps} steps, graph replays {eng._graph.replays}, "
+          f"max |graph - eager| logit {diff}, launches {got[2]}")
+    assert all(torch.equal(a, b) for a, b in zip(want[1], got[1]))
+    assert got[2] == want[2] and got[3] == want[3]
+    assert got[2]["quant_paged_attention"] == cfg.n_layers * steps
+    assert len(held) == steps - 2 and all(held)
