@@ -14,7 +14,6 @@ from benchlib import loop as LP
 from benchlib import spec as SP
 from benchlib import stats as ST
 from benchlib import traffic as TR
-from benchlib import weights as W
 
 GIB = 2 ** 30
 # kernel symbols, as the port's CUDA sources name them
@@ -83,7 +82,7 @@ def run(cell: SP.Cell, seed: int, seconds: float, trace: bool, *,
     from repro_torch.serving.telemetry import Tracer
 
     config, mix = cell.config, cell.traffic
-    model = LP.model_dims(config)
+    model = cell.family.dims(config)
     marks = [("imports", clock())]
     if torch.device(device).type == "cuda":
         from repro_torch.kernels import build
@@ -91,8 +90,8 @@ def run(cell: SP.Cell, seed: int, seconds: float, trace: bool, *,
         build.build_all()
     marks.append(("kernels", clock()))
     tracer = Tracer(clock) if trace else None
-    sched, engine = LP.build(config, mix, seed, device, cfg=cfg,
-                             tracer=tracer)
+    sched, engine = LP.build(config, mix, seed, device,
+                             family=cell.family, cfg=cfg, tracer=tracer)
     marks.append(("engine", clock()))
     if faults is not None:
         faults(engine)
@@ -144,7 +143,7 @@ def run(cell: SP.Cell, seed: int, seconds: float, trace: bool, *,
     else:
         # the tracer's clock counts from its own start
         base = tracer.clock() - tracer.now()
-        rec = {"model": model, "n_slots": n_slots,
+        rec = {"model": model, "family": cell.family, "n_slots": n_slots,
                "steps": win.steps, "done": win.done,
                "spans": tracer.spans,
                "span_window": (win.t0 - base, win.t1 - base), "prefix_cache":
@@ -215,8 +214,8 @@ def run(cell: SP.Cell, seed: int, seconds: float, trace: bool, *,
 
 def reference_checks(cell, model, seed, judged, states, n_slots,
                      temperature, device, control: bool) -> dict:
-    """The weights made again from the seed, the reference over the
-    judged sequences, float32 with TF32 off."""
+    """The family's weights made again from the seed, a layer at a time,
+    the reference over the judged sequences, float32 with TF32 off."""
     ref = SP.reference_module(cell.config["reference"], cell.root)
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
@@ -224,7 +223,7 @@ def reference_checks(cell, model, seed, judged, states, n_slots,
     torch.backends.cudnn.allow_tf32 = False
     try:
         with torch.no_grad():
-            w = ref.prepare(W.make(model, seed, device))
+            w = ref.prepare(*cell.family.make_weights(model, seed, device))
             return J.gaps(ref, w, model, judged, states, n_slots,
                           temperature, device,
                           control=(ref.BELOW[cell.config["torch_dtype"]]

@@ -1,10 +1,11 @@
 """The system under test and the closed loop that drives it.
 
-``build`` makes the weights from the seed and builds the port's engine
-as ``repro_torch.launch.serve.build_engine`` does (``quantize_model_params``
-under the port's default policy, ``cast_params``, a paged
-``DecodeEngine`` over a Q8 pool), with the cell's own ``max_len`` and one
-full-length reservation per slot.  ``ClosedLoop`` keeps ``clients`` tasks
+``build`` draws the family's weights from the seed a layer at a time and
+builds the port's engine as ``repro_torch.launch.serve.build_engine``
+does (``quantize_model_params`` under the port's default policy,
+``cast_params``, each layer as it arrives; a paged ``DecodeEngine`` over
+a Q8 pool), with the cell's own ``max_len`` and one full-length
+reservation per slot.  ``ClosedLoop`` keeps ``clients`` tasks
 in flight: each task is one ``Request(n_samples=N)``; when its N samples
 are back, ``core/best_of_n.select_best`` picks the answer under
 ``core/reward.LogProbScorer`` and the client submits its next task at
@@ -14,14 +15,13 @@ from __future__ import annotations
 
 import gc
 import time
-from dataclasses import dataclass, field, replace
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
 import torch
 
 from benchlib import traffic as TR
-from benchlib import weights as W
 
 BLOCK_SIZE = 16
 # decode steps after the first admissions, before the window: every
@@ -30,66 +30,33 @@ BLOCK_SIZE = 16
 WARMUP_STEPS = 4
 SAMPLER_SEED_SALT = 0x5DEECE66D
 
-# configuration-file keys (the published config's names) -> the model
-# section the weights and the reference read
-HF_KEYS = {"num_hidden_layers": "n_layers", "hidden_size": "d_model",
-           "num_attention_heads": "n_heads",
-           "num_key_value_heads": "n_kv_heads", "head_dim": "head_dim",
-           "intermediate_size": "d_ff", "vocab_size": "vocab_size",
-           "attention_bias": "qkv_bias",
-           "tie_word_embeddings": "tie_embeddings",
-           "rope_theta": "rope_theta", "rms_norm_eps": "norm_eps"}
 
-
-def model_dims(config: dict) -> dict:
-    """The widths and constants of a configuration file."""
-    return {v: config[k] for k, v in HF_KEYS.items() if k in config}
-
-
-def port_config(config: dict):
-    """The port's ``ModelConfig`` the file names, with the file's rope
-    theta (the port reads it at every call), checked number by number
-    against the file: the file is the configuration as it is run."""
-    from repro_torch.configs.registry import get_config
-
-    m = model_dims(config)
-    cfg = replace(get_config(config["port_arch"]),
-                  rope_theta=m["rope_theta"])
-    have = {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
-            "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
-            "head_dim": cfg.resolved_head_dim(), "d_ff": cfg.d_ff,
-            "vocab_size": cfg.vocab_size, "qkv_bias": cfg.qkv_bias,
-            "tie_embeddings": cfg.tie_embeddings,
-            "rope_theta": cfg.rope_theta, "norm_eps": cfg.norm_eps}
-    bad = {k: (m[k], have[k]) for k in m if m[k] != have[k]}
-    if bad or cfg.moe is not None or cfg.family != "transformer":
-        raise ValueError(f"{config['name']}: the port's "
-                         f"{config['port_arch']} differs from the file "
-                         f"(file, port): {bad}")
-    if config["torch_dtype"] != cfg.dtype:
-        raise ValueError(f"compute dtype {cfg.dtype} is not the file's "
-                         f"{config['torch_dtype']}")
-    return cfg
-
-
-def build(config: dict, mix: dict, seed: int, device, *, cfg=None,
+def build(config: dict, mix: dict, seed: int, device, *, family, cfg=None,
           tracer=None):
-    """(scheduler, engine) for a cell: weights from ``seed`` on
-    ``device``, W4A16 under the port's default policy, a paged engine
-    over the file's KV pool, and the scheduler with the mix's slots,
-    prompt length and prefix cache."""
+    """(scheduler, engine) for a cell: the ``family``'s weights from
+    ``seed`` on ``device``, W4A16 under the port's default policy, a
+    paged engine over the file's KV pool, and the scheduler with the
+    mix's slots, prompt length and prefix cache."""
     from repro_torch.data.tokenizer import ByteTokenizer
     from repro_torch.models import layers
     from repro_torch.quant.qlinear import cast_params, quantize_model_params
     from repro_torch.serving.engine import ContinuousScheduler, DecodeEngine
     from repro_torch.serving.prefix_cache import PrefixCache
 
-    cfg = cfg or port_config(config)
+    cfg = cfg or family.port_config(config)
     serving = config["serving"]
     layers.set_paged_attention_impl(serving["paged_attention"])
-    params = W.split_layers(W.make(model_dims(config), seed, device))
-    params = cast_params(quantize_model_params(params),
-                         getattr(torch, cfg.dtype))
+    dtype = getattr(torch, cfg.dtype)
+
+    def served(tree):
+        return cast_params(quantize_model_params(tree), dtype)
+
+    top, f32_layers = family.make_weights(family.dims(config), seed, device)
+    params = served(top)
+    # map releases each layer's f32 as its served form returns, before
+    # the next layer is drawn (a for loop's name would hold it)
+    params["layers"] = list(map(served, f32_layers))
+    del top, f32_layers       # the f32 is gone before the pool is made
     slots = int(mix["clients"]) * int(mix["n_samples"])
     max_len = TR.max_len(mix, BLOCK_SIZE)
     tok = ByteTokenizer()

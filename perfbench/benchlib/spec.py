@@ -8,11 +8,15 @@ names its file.  Everything else is found by name beside them:
 - ``limits/<workload>.json``: the limits of the numbers that decide
   ``correct`` in that cell, and the readings they were set from;
 - ``metrics/<metric>.py``: one reader per per-layer metric;
-- ``reference/<family>.py``: the plain reference the configuration file
-  names.
+- ``families/<reference>.py``: the model family the configuration file's
+  ``reference`` key names: its dimensions, its seeded weights, the
+  port's configuration and the model's cost rules
+  (``families/transformer.py`` lists what a family gives);
+- ``reference/<reference>.py``: the plain reference of that family.
 
-So a later change adds a configuration, a mix, a cell or a metric by
-adding files and entries, and edits none.
+So a later change adds a configuration, of a family already here or of a
+new one, a mix, a cell or a metric by adding files and entries, and
+edits none.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import importlib.util
 import json
 from dataclasses import dataclass, field
 from pathlib import Path
+from types import ModuleType
 
 ROOT = Path(__file__).resolve().parents[1]   # the perfbench directory
 
@@ -33,6 +38,7 @@ class Cell:
     limits: dict            # the limits file's content
     end_to_end: list        # BENCHMARK.json entries reported by this cell
     per_layer: list
+    family: ModuleType      # families/<reference>.py
     root: Path = field(default=ROOT)
 
 
@@ -69,7 +75,8 @@ def resolve(workload: str, root: Path = ROOT) -> Cell:
                  if m["moves"] in reported and _applies(m, workload)]
     return Cell(name=workload, chips=int(w["chips"]), config=config,
                 traffic=traffic, limits=limits, end_to_end=e2e,
-                per_layer=per_layer, root=root)
+                per_layer=per_layer,
+                family=family_module(config["reference"], root), root=root)
 
 
 def _load_file(path: Path, name: str):
@@ -90,3 +97,9 @@ def reference_module(family: str, root: Path = ROOT):
     """The plain reference ``reference/<family>.py``."""
     return _load_file(root / "reference" / f"{family}.py",
                       f"perfbench_reference_{family}")
+
+
+def family_module(family: str, root: Path = ROOT):
+    """The model family ``families/<family>.py``."""
+    return _load_file(root / "families" / f"{family}.py",
+                      f"perfbench_family_{family.replace('.', '_')}")

@@ -1,5 +1,6 @@
-"""The yardstick: the card's published peaks, the least work of each kernel
-call, and the FLOPs a model needs for its tokens.
+"""The yardstick: the card's published peaks and the least work of each
+kernel call.  What a model needs for its tokens (its FLOPs, the keys K2
+reads) is its family's rule (``families/<reference>.py``).
 
 The cost rules are frozen copies of the port's ``kernels/autotune``
 ``gemm_cost`` and ``paged_attn_cost`` as of this benchmark's first
@@ -51,22 +52,3 @@ def q8_slab_bytes(n_kv_heads: int, head_dim: int, gr: int = 2,
     return float(n_kv_heads * head_dim
                  + (n_kv_heads // gr) * (head_dim // gc) * 2)
 
-
-def token_flops(m: dict) -> float:
-    """FLOPs of one token through the projections of every layer (2 per
-    multiply-add), without attention over the context and without the
-    LM head."""
-    d, hd = m["d_model"], m["head_dim"]
-    attn = d * hd * (2 * m["n_heads"] + 2 * m["n_kv_heads"])
-    ffn = 3 * d * m["d_ff"]
-    return 2.0 * m["n_layers"] * (attn + ffn)
-
-
-def attn_flops(m: dict, context: int) -> float:
-    """QK and PV of one query over ``context`` keys, every layer."""
-    return 4.0 * m["n_layers"] * m["n_heads"] * m["head_dim"] * context
-
-
-def head_flops(m: dict) -> float:
-    """One row of logits."""
-    return 2.0 * m["d_model"] * m["vocab_size"]

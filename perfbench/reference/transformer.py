@@ -15,6 +15,8 @@ the logits at the positions that sampled them, with the semantics of the
 served path: prompt positions attend over fresh keys and values (over
 the stored, quantized ones for a cached prefix of ``cached`` tokens);
 every served position attends over the stored ones, its own included.
+A model whose dims carry ``windows`` (one per layer, 0 for full
+attention) attends in each layer over its window only.
 
 ``act`` rounds every activation that enters a matrix product (the
 control runs the reference so, one precision below the configuration's).
@@ -64,27 +66,28 @@ def kv_q8(x: torch.Tensor) -> torch.Tensor:
     return (torch.clamp(torch.round(t / s), -127, 127) * s).reshape(x.shape)
 
 
-def prepare(tree: dict) -> dict:
-    """The dequantized f32 weights of a stacked f32 tree (the JAX
-    package's layout), layer by layer."""
-    lay = tree["layers"]
-    L = lay["attn_norm"]["scale"].shape[0]
-    out = []
-    for i in range(L):
+def prepare(top: dict, layers) -> dict:
+    """The dequantized f32 weights of a family's (top, layers): the
+    non-layer leaves and an iterable of per-layer dicts, taken a layer
+    at a time."""
+
+    def layer(lay):
         a, f = lay["attn"], lay["ffn"]
-        p = {"attn_norm": lay["attn_norm"]["scale"][i],
-             "ffn_norm": lay["ffn_norm"]["scale"][i]}
+        p = {"attn_norm": lay["attn_norm"]["scale"],
+             "ffn_norm": lay["ffn_norm"]["scale"]}
         for name in ("wq", "wk", "wv", "wo"):
-            p[name] = q4_tile(a[name]["w"][i])
+            p[name] = q4_tile(a[name]["w"])
             if "b" in a[name]:
-                p[name + "_b"] = a[name]["b"][i]
-        p["gate"] = q4_tile(f["gate"]["w"][i])
-        p["up"] = q4_tile(f["up"]["w"][i])
-        p["down"] = q8_groups(f["down"]["w"][i])
-        out.append(p)
-    head = tree.get("lm_head", tree["embedding"])["table"]
-    return {"layers": out, "table": tree["embedding"]["table"],
-            "head": head, "final_norm": tree["final_norm"]["scale"]}
+                p[name + "_b"] = a[name]["b"]
+        p["gate"] = q4_tile(f["gate"]["w"])
+        p["up"] = q4_tile(f["up"]["w"])
+        p["down"] = q8_groups(f["down"]["w"])
+        return p
+
+    head = top.get("lm_head", top["embedding"])["table"]
+    return {"layers": list(map(layer, layers)),
+            "table": top["embedding"]["table"], "head": head,
+            "final_norm": top["final_norm"]["scale"]}
 
 
 def rmsnorm(x, scale, eps):
@@ -101,8 +104,10 @@ def rope(x, pos, theta):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def _attend(q, k, v, kq, vq, n_prompt, cached, act):
-    """q (T, Hq, D); k, v fresh and kq, vq stored, (T, Hkv, D)."""
+def _attend(q, k, v, kq, vq, n_prompt, cached, act, window=0):
+    """q (T, Hq, D); k, v fresh and kq, vq stored, (T, Hkv, D); with a
+    ``window`` > 0 a query sees only the ``window`` latest positions,
+    its own included."""
     T, Hq, D = q.shape
     Hkv = k.shape[1]
     G = Hq // Hkv
@@ -115,7 +120,8 @@ def _attend(q, k, v, kq, vq, n_prompt, cached, act):
     j = torch.arange(T, device=q.device)[None]
     stored = ((j < cached) & (i >= cached)) | (i >= n_prompt)
     s = torch.where(stored, qh @ keys(kq), qh @ keys(k)) / math.sqrt(D)
-    s = s.masked_fill(j > i, float("-inf"))
+    hidden = (j > i) | (i - j >= window) if window > 0 else j > i
+    s = s.masked_fill(hidden, float("-inf"))
     p = torch.softmax(s, dim=-1)
 
     def vals(x):
@@ -140,7 +146,8 @@ def sequence_logits(w: dict, model: dict, tokens: torch.Tensor,
     T = tokens.shape[0]
     pos = torch.arange(T, device=tokens.device)
     x = w["table"][tokens.long()].float()
-    for p in w["layers"]:
+    windows = model.get("windows") or [0] * len(w["layers"])
+    for p, window in zip(w["layers"], windows):
         h = act(rmsnorm(x, p["attn_norm"], eps))
 
         def proj(name):
@@ -150,7 +157,8 @@ def sequence_logits(w: dict, model: dict, tokens: torch.Tensor,
         q = rope(proj("wq").reshape(T, hq, hd), pos, theta)
         k = rope(proj("wk").reshape(T, hkv, hd), pos, theta)
         v = proj("wv").reshape(T, hkv, hd)
-        o = _attend(q, k, v, kv_q8(k), kv_q8(v), n_prompt, cached, act)
+        o = _attend(q, k, v, kv_q8(k), kv_q8(v), n_prompt, cached, act,
+                    window)
         x = x + act(o) @ p["wo"]
         h = act(rmsnorm(x, p["ffn_norm"], eps))
         g = torch.nn.functional.silu(h @ p["gate"]) * (h @ p["up"])

@@ -7,11 +7,10 @@ import torch
 
 from tiny import CONFIG, port_cfg
 
-from benchlib import loop as LP
 from benchlib import spec
-from benchlib import weights as W
 
 ref = spec.reference_module("transformer")
+family = spec.family_module("transformer")
 
 
 def test_weight_and_kv_quantization_match_the_port():
@@ -34,9 +33,10 @@ def test_logits_match_the_ports_paged_engine():
     from repro_torch.serving.engine import DecodeEngine
     from repro_torch.serving.sampler import SamplerConfig
 
-    model = LP.model_dims(CONFIG)
+    model = family.dims(CONFIG)
+    top, layers = family.make_weights(model, 3, "cpu")
     params = cast_params(quantize_model_params(
-        W.split_layers(W.make(model, 3, "cpu"))), torch.float32)
+        dict(top, layers=list(layers))), torch.float32)
     engine = DecodeEngine(params, port_cfg(), max_len=64, paged=True,
                           block_size=16, n_blocks=9, kv_quant="q8")
     P, n = 21, 14
@@ -48,7 +48,7 @@ def test_logits_match_the_ports_paged_engine():
         got.append(st.pending_logits[0].clone())
         st, tok = engine.step(st, None, SamplerConfig(greedy=True))
         toks.append(int(tok[0]))
-    w = ref.prepare(W.make(model, 3, "cpu"))
+    w = ref.prepare(*family.make_weights(model, 3, "cpu"))
     seq = torch.as_tensor(np.concatenate([prompt[0].numpy(), toks[:-1]]))
     want = ref.sequence_logits(w, model, seq, P, 0, range(P - 1, P - 1 + n))
     assert torch.allclose(torch.stack(got), want, atol=2e-5, rtol=0)

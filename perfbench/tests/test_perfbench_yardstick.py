@@ -1,10 +1,11 @@
 """The yardstick's frozen cost rules equal the port's
 ``kernels/autotune`` at the cells' shapes today; a change to either
-shows here."""
+shows here.  The dense family's FLOPs of a token."""
 import pytest
 
 import tiny  # noqa: F401
 
+from benchlib import spec
 from benchlib import yardstick as Y
 
 SHAPES = [(M, K, N) for M in (1, 48, 257, 1024, 1152)
@@ -39,7 +40,8 @@ def test_paged_attn_cost_is_the_ports(B, W, tokens):
 def test_flops_of_a_token():
     m = {"n_layers": 28, "d_model": 1536, "n_heads": 12, "n_kv_heads": 2,
          "head_dim": 128, "d_ff": 8960, "vocab_size": 151936}
+    F = spec.family_module("transformer")
     # 1.31e9 projection parameters and the 233M-parameter head
-    assert Y.token_flops(m) == pytest.approx(2 * 1.3104e9, rel=1e-3)
-    assert Y.head_flops(m) == 2 * 1536 * 151936
+    assert F.token_flops(m) == pytest.approx(2 * 1.3104e9, rel=1e-3)
+    assert F.head_flops(m) == 2 * 1536 * 151936
     assert Y.least_s(989e12, 0) == pytest.approx(1.0)

@@ -58,4 +58,5 @@ def cell(header: int = 0, judge_tasks: int = 3, config: dict = CONFIG,
     return spec.Cell(name="tiny", chips=1, config=dict(config),
                      traffic=mix(header, **kw), limits=limits,
                      end_to_end=bench["end_to_end"],
-                     per_layer=bench["per_layer"])
+                     per_layer=bench["per_layer"],
+                     family=spec.family_module(config["reference"]))
